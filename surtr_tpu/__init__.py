@@ -1,4 +1,4 @@
-"""surtr_tpu — a TPU-native real-time fracture-simulation framework.
+"""surtr_tpu — a real-time fracture-simulation framework on the accelerator.
 
 Rebuild of the capabilities of W298/Surtr (VMACH volumetric approximate convex
 decomposition + rigid-body dynamics + shadow-mapped rendering) as batched,

@@ -3,7 +3,7 @@
 The reference has none (SURVEY §5 — device-loss recovery resets the scene).
 Here the whole simulation state is a pytree (pieces, fracture context, rigid
 states), so snapshot/restore is a flat array dump: ``save_scene`` /
-``load_scene`` via np.savez (orbax-free so tests need no TPU/async machinery;
+``load_scene`` via np.savez (orbax-free so tests need no async machinery;
 the arrays are identical to what orbax would store).
 """
 

@@ -2,9 +2,9 @@
 
 ``FractureConfig`` mirrors the reference's runtime ``FractureArgs``
 (/root/reference/Inc/Surtr.h:89-110) with the same parameter names/defaults so
-parity runs are config-compatible. Static shape maxima (the TPU analogue of the
-reference's compile-time caps, Surtr.h:261-268) live here too, since they are
-part of the jit cache key.
+parity runs are config-compatible. Static shape maxima (the padded-shape
+analogue of the reference's compile-time caps, Surtr.h:261-268) live here too,
+since they are part of the jit cache key.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class FractureConfig:
 
     target_adder: float = 0.01             # TargetAdder (impact point push-in)
 
-    # --- static shape maxima (TPU padding; not in the reference) ---
+    # --- static shape maxima (padded shapes; not in the reference) ---
     max_faces: int = 32          # F: faces per convex polytope
     max_face_verts: int = 16     # S: vertex slots per face loop
     max_pieces: int = 256        # piece capacity after compaction
@@ -56,7 +56,6 @@ class FractureConfig:
                                  # fracture event (islands are rare —
                                  # per-candidate slot doubling wasted 2× the
                                  # whole pipeline; 0 disables splitting)
-    island_label_iters: int = 12 # label-propagation rounds per labeling
     island_voxel_res: int = 6    # per-axis resolution of the island-merge
                                  # voxel connectivity grid (material paths
                                  # around bends — PARITY.md divergence 3);
@@ -65,8 +64,8 @@ class FractureConfig:
                                  # resolution (per axis) replacing per-query
                                  # winding numbers against the SOURCE model
                                  # (every candidate shares one closed solid;
-                                 # winding measured ~420 ms of the pumpkin
-                                 # 1k decomposition). 0 = exact winding.
+                                 # winding is P·T·atan2 per query batch at
+                                 # model scale). 0 = exact winding.
                                  # do_fracture always uses winding (its
                                  # per-piece solids are small and only
                                  # approximately watertight).
@@ -92,27 +91,21 @@ class FractureConfig:
                                  # vertex radius about its seed) — with
                                  # nearest-first sorting nearly every tail
                                  # plane is provably non-cutting, so the
-                                 # Pallas fold's block-level skip reduces
-                                 # those steps to a distance test. Exact:
-                                 # a masked plane cannot cut its cell.
+                                 # fold reduces those steps to a distance
+                                 # test. Exact: a masked plane cannot cut
+                                 # its cell.
                                  # 0 = single-pass fold of all planes
-    mesh_pair_pool: bool | str = "auto"
-                                 # model-scale mesh clip: compact the live
-                                 # (cell, tri) pairs into one flat pool and
-                                 # fold each pooled polygon by its own
-                                 # cell's planes (ops/mesh_clip.py
-                                 # clip_polys_by_rows) instead of clipping
-                                 # per-cell uniform pools (~90% padding at
-                                 # pumpkin scale). False = the per-cell
-                                 # vmapped clip (equivalence-tested).
-                                 # "auto": do_fracture picks the pooled
-                                 # kernel only when the (job, tri) lane
-                                 # pool is ≥ 64k (measured crossover: the
-                                 # vmapped clip wins 7.7 vs 8.7 ms at the
-                                 # 32k interactive-frame pool; the pooled
-                                 # kernel wins ~50 ms at pumpkin scale);
-                                 # prepare_fracture's pair pool always
-                                 # packs (its culled pools are large).
+    mesh_pair_pool: bool = True
+                                 # prepare_fracture's model-scale mesh clip:
+                                 # compact the live (cell, tri) pairs into
+                                 # one flat pool and fold each pooled
+                                 # polygon by its own cell's planes
+                                 # (ops/mesh_clip.py clip_polys_by_rows)
+                                 # instead of clipping per-cell uniform
+                                 # pools (~90% padding at pumpkin scale).
+                                 # False = the per-cell vmapped clip
+                                 # (equivalence-tested). do_fracture always
+                                 # runs the vmapped clip_trisoup per job.
     exact_caps: bool = True
                                  # True = exact cut-surface caps (the
                                  # reference's closed-polyhedron clip
@@ -145,14 +138,6 @@ class FractureConfig:
     cap_probe_nudge: float = 1e-4
                                  # inward probe offset (× max axis scale)
                                  # for the inside-solid interval tests
-    voronoi_exact_topk: bool = False
-                                 # True = exact top_k for the k-nearest
-                                 # bisector selection; False = TPU
-                                 # approx_max_k (recall_target 0.99,
-                                 # measured recall 1.0 on uniform clouds,
-                                 # ~40% faster at 1k seeds). Set True for
-                                 # parity-critical runs: a missed near
-                                 # bisector duplicates cell volume.
 
     # f32 tolerance at unit scale (reference: 1e-10 in f64, Poly.cpp:718).
     plane_tol: float = 1e-6
@@ -173,33 +158,12 @@ class PhysicsConfig:
     solver_iters: int = 8          # projected-impulse iterations (stacking
                                    # verified stable at 8; PhysX defaults to
                                    # 4+1 — Jacobi needs a few more)
-    # NOTE: PGS warm starting (PhysX persistent-manifold analogue) was
-    # prototyped in round 3 and REJECTED: accumulated-impulse iterations are
-    # only stable under this Jacobi + mass-splitting + chaotic-substep
-    # scheme at solver_substeps=1 (which doubles launches, cancelling the
-    # saved iterations), and the warm pre-apply itself adds 0.04-0.25 m of
-    # lateral stack drift over 5 s from manifold-slot re-matching noise.
-    # True warm starting needs a sequential (Gauss-Seidel) sweep. See
-    # ROADMAP.
-    warm_start: bool = False       # persistent-manifold warm starting
-                                   # (PhysX analogue): carry accumulated
-                                   # normal impulses across steps keyed by
-                                   # (partner body, contact FEATURE id —
-                                   # the generating hull vertex, stable
-                                   # under manifold-slot permutation), and
-                                   # solve in accumulated-PGS mode (clamp
-                                   # on the TOTAL impulse, friction from
-                                   # the remaining cone budget). Fused
-                                   # Pallas solver path only; default OFF
-                                   # until the stack/pile suite validates
-                                   # the iteration-count savings
     solver_substeps: int = 2       # impulse updates per partner-velocity
                                    # refresh (chaotic-relaxation Jacobi:
                                    # own-body state updates every substep,
-                                   # partner velocities every refresh —
-                                   # iters/substeps fused launches total).
-                                   # 4 (−0.4 ms) was tried in round 3 and
-                                   # REJECTED: the 5-stack's lateral drift
+                                   # partner velocities every refresh).
+                                   # 4 was tried and REJECTED: the
+                                   # 5-stack's lateral drift
                                    # is numerics-marginal there (passes in
                                    # one float environment, 0.16 m in
                                    # another); 2 is robust.
@@ -224,46 +188,6 @@ class PhysicsConfig:
                                    # exactly one piece (fully shattered
                                    # scenes): enables the gather-free solver
                                    # fast path (segment sums are identity)
-    force_pallas_solver: bool = False
-                                   # run the fused Pallas solver even off-TPU
-                                   # (interpret mode) — used by tests to
-                                   # check parity with the XLA solver
-    pallas_narrowphase: bool = True
-                                   # TPU: fused Pallas SAT+manifold kernel
-                                   # (physics/narrowphase_pallas.py),
-                                   # batch-minor v2 layout (lanes = pairs).
-                                   # Measured at 10k pieces: narrowphase
-                                   # slice 6.3 -> 3.0 ms, full step
-                                   # 14.8 -> 11.5 ms. (The v1 layout with
-                                   # geometry on lanes used 32 of 128
-                                   # lanes and lost 5x; see module doc.)
-    force_pallas_narrowphase: bool = False
-                                   # run the Pallas narrowphase off-TPU
-                                   # (interpret mode) — parity tests
-    pallas_broadphase: bool = True
-                                   # TPU + broadphase="sorted": fuse the
-                                   # window sweep, stable top-K selection
-                                   # and mutual check into one Pallas
-                                   # kernel over the Morton-sorted table
-                                   # (physics/broadphase_pallas.py). The
-                                   # XLA tail materializes a (Np, 2W, 11)
-                                   # candidate tensor + a (Np, K, K)
-                                   # mutual gather per step
-    force_pallas_broadphase: bool = False
-                                   # run the Pallas broadphase off-TPU
-                                   # (interpret mode) — parity tests
-    fused_prep: bool = True        # TPU single-piece path: fuse contact prep
-                                   # (slot assembly, k terms, targets, mass
-                                   # splitting, solver lane packing) into one
-                                   # Pallas kernel (physics/prep_pallas.py).
-                                   # The XLA prep is ~60 small ops whose
-                                   # per-op overhead measured ~6.5 ms at 10k
-    # (banded_solver / solver_gauss_seidel were deleted in round 5: the
-    # banded-Morton single-launch solver measured-out twice, and the
-    # one-kernel Gauss-Seidel COLOR SWEEP that remained the open question
-    # is dead on arrival — its per-color one-hot gather/scatter roundtrip
-    # alone costs 3.2 ms/step at 10k bodies, 3x the whole Jacobi solver
-    # share (tools/exp_gs_sweep.py; ROADMAP "Round-5 resolution").)
     sleep_velocity: float = 0.05   # bodies slower than this (|v| and |ω|)
                                    # for sleep_frames consecutive steps go
                                    # to sleep: frozen pose, static for
@@ -296,32 +220,18 @@ class PhysicsConfig:
                                    # predicate instead of a full step
 
     broadphase_block: int = 512    # row-block size for the k-nearest sweep
-    broadphase: str = "auto"       # "exact_pallas" = fused sweep-and-prune,
-                                   #   GUARANTEED FULL RECALL (the PhysX
-                                   #   no-missed-pairs contract), ~0.4 ms at
-                                   #   10k (TPU; piece ids pack into the
-                                   #   selection keys — see
-                                   #   broadphase_pallas.MAX_EXACT_NP);
-                                   # "sorted" = Morton-window sweep (O(N·W);
-                                   #   misses spatial neighbors > window
-                                   #   apart in Morton order — a measured
-                                   #   20-30% of exact top-K pairs on dense
-                                   #   piles);
-                                   # "grid"   = uniform-grid buckets: full
+    broadphase: str = "auto"       # "auto" = blocked all-pairs
+                                   #   sweep: FULL RECALL at every size
+                                   #   (the PhysX no-missed-pairs
+                                   #   contract);
+                                   # "sorted" = Morton-window sweep
+                                   #   (O(N·W); misses spatial neighbors
+                                   #   > window apart in Morton order — a
+                                   #   measured 20-30% of exact top-K
+                                   #   pairs on dense piles);
+                                   # "grid" = uniform-grid buckets: full
                                    #   recall up to broadphase_bucket_cap
-                                   #   pieces per probed cell (~20 ms at
-                                   #   10k: XLA TPU row gathers dominate);
-                                   # "exact"  = blocked all-pairs XLA sweep
-                                   #   (O(N²/block), 5.7 ms at 10k);
-                                   # "auto"   = FULL RECALL everywhere it
-                                   #   fits (step.py:_broadphase dispatch):
-                                   #   XLA exact when the pool fits one
-                                   #   sweep block, the Pallas exact sweep
-                                   #   up to MAX_EXACT_NP pieces on TPU,
-                                   #   and Morton-window sorted only beyond
-                                   #   that — with a loud trace-time
-                                   #   RecallDegradedWarning, since the
-                                   #   window sweep can miss pairs
+                                   #   pieces per probed cell.
     broadphase_window: int = 32    # sorted-order neighbors tested per side
     broadphase_bucket_cap: int = 8 # grid: members tested per probed cell
                                    # (27 cells ⇒ ≤ 216 exact AABB tests
@@ -339,10 +249,8 @@ class RenderConfig:
                                    # here the shadow pass is a full software
                                    # raster, so the default matches the
                                    # image resolution (512² ≈ no visible
-                                   # quality delta at these scene scales;
-                                   # measured 15.9 → 12.4 ms/frame at 1024
-                                   # → 512). Configurable; bench measures
-                                   # both 512 and 1024.
+                                   # quality delta at these scene scales).
+                                   # Configurable.
     ambient: float = 0.08          # Shader.hlsli ambient term
     pcf_taps: int = 3              # 3x3 = 9-tap PCF (Shader.hlsli:97-126)
     fov_deg: float = 45.0

@@ -2,8 +2,8 @@
 event across 64 meshes in parallel'.
 
 The mesh-batch axis is the framework's scaling axis (SURVEY §2.3): on one
-chip it is a memory-bounded ``lax.map`` over meshes (each element already
-saturates the VPU via the inner cells×faces×slots vectorization); across
+device it is a memory-bounded ``lax.map`` over meshes (each element is
+already wide through the inner cells×faces×slots vectorization); across
 chips it shards with ``shard_map`` (see ``sharded_batch_decompose``).
 """
 

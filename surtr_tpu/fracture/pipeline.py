@@ -6,7 +6,7 @@ Reference call stacks mirrored (SURVEY §3):
   * ``do_fracture``       — DoFracture/ApplyFracture/MergeOutOfImpact/
     HandleConvexIsland/Refitting (Surtr.cpp:1885-1958, 2098-2458).
 
-TPU redesign decisions (DESIGN.md):
+Design decisions (DESIGN.md):
   * the per-cell thread-pool fan-out (m_fractureTask, Surtr.cpp:1457-1504)
     becomes an (active-pieces × cells) 2-D vmap of the clip kernel;
   * piece bookkeeping is flat & padded (PieceSet) with masked compaction
@@ -127,9 +127,8 @@ def _append_tris(base, base_mask, extra_rows, extra_counts):
     packed = packed.reshape(T, 3, 3)
     n_extra = jnp.sum(extra_counts)
     # k-th free slot receives the k-th packed cap triangle. One-hot
-    # contraction, not packed[rank]: the row gather batches to an
-    # ms-scale XLA gather under the candidate vmap (caps were ~1.7 ms of
-    # the decomposition's finish stage), while the (T, T) select fuses.
+    # contraction, not packed[rank]: under the candidate vmap the row
+    # gather becomes a batched gather, while the (T, T) select fuses.
     free = ~base_mask
     rank = jnp.cumsum(free.astype(jnp.int32)) - free.astype(jnp.int32)
     take = free & (rank < n_extra)
@@ -154,7 +153,7 @@ def refit_planes(verts: jax.Array, vmask: jax.Array, limit: int):
     # limit <= 4 builds exactly the seed tetrahedron: 4 faces, so the padded
     # hull table (and the slab-plane fold) can be 3× tighter — and the
     # gather-free tetra path avoids ~6 batched index gathers per candidate
-    # (each ~ms-scale on this backend; see ops/hull.py tetra_hull).
+    # (see ops/hull.py tetra_hull).
     if limit <= 4:
         from surtr_tpu.ops.hull import tetra_hull
 
@@ -177,9 +176,7 @@ def refit_convex(
     return clip_poly_planes(convex, planes, pm)
 
 
-def _cell_plane_sets(
-    seeds: jax.Array, k: int, extent, center, exact_topk: bool = False
-):
+def _cell_plane_sets(seeds: jax.Array, k: int, extent, center):
     """Per-seed half-space sets in world space: the 6 domain faces + the
     k-nearest bisectors, all computed in unit space (voro++ container parity)
     and transformed by the reference's anisotropic scale + translate
@@ -190,15 +187,7 @@ def _cell_plane_sets(
     d2 = jnp.sum((seeds[:, None] - seeds[None]) ** 2, axis=-1)
     big = jnp.asarray(BIG, seeds.dtype)
     d2 = jnp.fill_diagonal(d2, big, inplace=False)
-    # approx_max_k: the TPU-native aggregated top-k (~40% faster than exact
-    # top_k at C=1k; recall measured 1.0 on uniform seed clouds — cell
-    # volume conservation is asserted by tests either way). A missed near
-    # bisector duplicates cell volume, so parity-critical runs can force the
-    # exact top-k via FractureConfig.voronoi_exact_topk.
-    if exact_topk:
-        _, idx = jax.lax.top_k(-d2, k)                      # nearest first
-    else:
-        _, idx = jax.lax.approx_max_k(-d2, k, recall_target=0.99)
+    _, idx = jax.lax.top_k(-d2, k)                          # nearest first
 
     def one(seed, nbr):
         bp, bm = bisector_planes(seed, seeds[nbr], jnp.ones((k,), bool))
@@ -222,10 +211,8 @@ def _cell_plane_sets(
 
 def _two_pass_cell_clip(poly_b, cell_planes, cell_pmask, seeds_w, prefix):
     """Voronoi cell fold in two passes. Plane lists are ordered
-    [domain walls, bisectors nearest-first] (_cell_plane_sets), so the
-    block-level no-cut skip in the Pallas kernel fires for essentially
-    every plane step when folding all of them (a block of 128 cells has
-    SOME cell cut by its k-th bisector until k is large). Pass 1 folds
+    [domain walls, bisectors nearest-first] (_cell_plane_sets), and far
+    bisectors rarely cut. Pass 1 folds
     the walls + ``prefix`` nearest bisectors; the remaining planes can cut
     cell i only if n·s_i + d + R_i > tol, where R_i is the pass-1 cell's
     vertex radius about its seed (for every cell vertex v:
@@ -242,8 +229,8 @@ def _two_pass_cell_clip(poly_b, cell_planes, cell_pmask, seeds_w, prefix):
     )
     # Exact tail filter: plane can affect the final cell only if it cuts
     # the (larger) pass-1 cell, i.e. its support over the pass-1 vertices
-    # is positive. Computed as broadcast multiply-adds (VPU; no bf16
-    # matmul). Margin 0 vs the kernel's cut tolerance keeps the filter
+    # is positive. Computed as broadcast multiply-adds (no reduced-precision
+    # matmul). Margin 0 vs the fold's cut tolerance keeps the filter
     # conservative: a kept no-op plane costs one masked kernel step.
     fv = conv.face_verts
     tn = cell_planes[:, K1:, :3]                           # (C, K2, 3)
@@ -259,8 +246,8 @@ def _two_pass_cell_clip(poly_b, cell_planes, cell_pmask, seeds_w, prefix):
     )
     need = cell_pmask[:, K1:] & (smax > 0.0)
     # Compact needed planes to the front of each cell's tail (original
-    # order preserved among them) so the Pallas block-skip reduces every
-    # slot past the block's max needed count to a distance test.
+    # order preserved among them); every masked slot after them is a no-op
+    # step of the fold.
     K2 = Kt - K1
     score = jnp.where(
         need, -jnp.arange(K2, dtype=fv.dtype)[None], -BIG
@@ -314,25 +301,9 @@ def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg,
     # Probing the ORIGINAL closed source mesh keeps the ray-parity test
     # robust (round 1 probed an approximate capped mesh and mis-split thin
     # fragments, duplicating convex volume — PARITY.md divergence 3).
-    from surtr_tpu.ops.clip_pallas import _target_is_tpu
-
-    if _target_is_tpu():
-        # Full-closure VPU kernel, candidates on lanes: the batched 64×64
-        # bf16 squarings of the XLA path are the sub-128-matmul shape the
-        # MXU handles poorly (1.15 ms/event cube, 23 ms pumpkin).
-        from surtr_tpu.ops.labels_pallas import (
-            tri_soup_components_batch_pallas,
-        )
-
-        labels = tri_soup_components_batch_pallas(
-            mtris, mmask, iters=cfg.island_label_iters
-        )
-    else:
-        labels = jax.vmap(
-            lambda t, m: tri_soup_components(
-                t, m, iters=cfg.island_label_iters
-            )
-        )(mtris, mmask)                                    # (N0, T)
+    labels = jax.vmap(
+        lambda t, m: tri_soup_components(t, m)
+    )(mtris, mmask)                                        # (N0, T)
     Tcap = mtris.shape[1] + 1
     lab_valid = jnp.where(mmask, labels, Tcap)
     picks = []
@@ -372,8 +343,8 @@ def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg,
         # only approximately watertight and parity mis-reads interior
         # points, which split fragments and duplicated convex volume.
         # When every candidate shares ONE closed source solid (prepare),
-        # the caller passes a precomputed parity grid instead — per-probe
-        # winding against a model-scale soup was ~420 ms/event.
+        # the caller passes a precomputed parity grid instead of per-probe
+        # winding against a model-scale soup.
         if solid_grid is not None:
             in_solid = parity_grid_inside(solid_grid, probes)
         else:
@@ -458,7 +429,7 @@ def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg,
         def _compute(_):
             # Chunked over candidates: the winding sweep materializes
             # (chunk, VR³, Ts, 3) — a full vmap at 1024 candidates × 10k
-            # source tris is a 26 GB tensor (measured HBM OOM).
+            # source tris is a 26 GB tensor (out of device memory).
             return jax.lax.map(
                 lambda a: voxel_labels(*a),
                 (conv, solid_t, solid_m),
@@ -550,18 +521,7 @@ def prepare_fracture(
     Tp = cfg.max_piece_tris
 
     # 1-2. ICH face normals (Surtr.cpp:1750-1755).
-    from surtr_tpu.ops.clip_pallas import _target_is_tpu as _on_tpu
-
-    if _on_tpu():
-        # Whole greedy-insertion loop in one kernel: the XLA fori body is
-        # ~50 small ops × 16 insertions of pure dispatch overhead
-        # (~0.7 ms cube / ~4.9 ms pumpkin). Interpret parity in
-        # tests/test_parity_grid.py.
-        from surtr_tpu.ops.hull_pallas import ich_pallas
-
-        h = ich_pallas(verts, vmask, limit=cfg.ich_include_point_limit)
-    else:
-        h = ich(verts, vmask, limit=cfg.ich_include_point_limit)
+    h = ich(verts, vmask, limit=cfg.ich_include_point_limit)
 
     # 3. Bounding box (Surtr.cpp:1757-1772).
     big = jnp.asarray(BIG, verts.dtype)
@@ -600,26 +560,8 @@ def prepare_fracture(
     # This halves the decomposition cost vs building cell geometry first.
     k0, k1, k2 = jax.random.split(key, 3)
     seeds = uniform_seeds(k0, C)
-    # Density-sort the seed batch (same set, deterministic): the Pallas
-    # fold's block-level no-cut skip fires per 128-cell block, so grouping
-    # cells of similar local density lets blocks of sparse cells stop
-    # firing after their few near bisectors instead of riding the densest
-    # cell in a mixed block. Cell order is otherwise arbitrary (candidate
-    # ids / groups derive from it but carry no meaning).
-    if C > 128:
-        dmin = jnp.min(
-            jnp.fill_diagonal(
-                jnp.sum((seeds[:, None] - seeds[None]) ** 2, -1),
-                jnp.asarray(BIG, seeds.dtype),
-                inplace=False,
-            ),
-            axis=1,
-        )
-        seeds = seeds[jnp.argsort(dmin)]
     kN = min(cfg.voronoi_neighbors, C - 1)
-    cell_planes, cell_pmask = _cell_plane_sets(
-        seeds, kN, extent, bb_center, exact_topk=cfg.voronoi_exact_topk
-    )
+    cell_planes, cell_pmask = _cell_plane_sets(seeds, kN, extent, bb_center)
 
     if profile_stage <= 2:
         return _psum(ach, cell_planes, cell_pmask), None, None
@@ -651,7 +593,7 @@ def prepare_fracture(
 
     # 10. Initial pieces: ACH ∩ cell, mesh ∩ cell (ApplyFracture on the
     # single pre-compound, Surtr.cpp:1810-1811). One batched plane fold
-    # (Pallas VMEM kernel on TPU) over all C cells — two-pass with the
+    # over all C cells — two-pass with the
     # radius-bound tail mask (see _two_pass_cell_clip).
     ach_b = jax.tree_util.tree_map(
         lambda a: jnp.broadcast_to(a[None], (C,) + a.shape), ach
@@ -719,8 +661,8 @@ def prepare_fracture(
 
     # Conservative per-cell triangle culling: at model scale every cell
     # intersects only ~1% of the source mesh, but the naive clip runs all
-    # Tsrc triangles against every cell's planes (pumpkin 10k tris × 1024
-    # cells measured 4.6 s/event). A triangle can survive cell c only if
+    # Tsrc triangles against every cell's planes (10k tris × 1024 cells at
+    # model scale). A triangle can survive cell c only if
     # no cell plane separates its bounding sphere; survivors compact into
     # a per-cell pool via top-k over (-index) so the clip sees ``cap``
     # candidates instead of Tsrc. Exact for everything kept; pool
@@ -762,7 +704,7 @@ def prepare_fracture(
         )
         if profile_stage == 42:     # sub-profile: active planes + cull
             return _psum(conv, cidx, csel), None, None
-        if cfg.mesh_pair_pool in (True, "auto"):  # prepare always packs
+        if cfg.mesh_pair_pool:
             # Pair-pool clip: compact the LIVE (cell, tri) pairs into one flat
             # pool and give every pooled polygon its own cell's planes. The
             # per-cell uniform pools wasted ~90% of their slots at model scale
@@ -776,10 +718,9 @@ def prepare_fracture(
             kept_cnt = jnp.sum(csel, axis=1).astype(jnp.int32)     # (C,)
             # Pool sized for the MEASURED occupancy, not the worst case: a
             # triangle lands in ~2-3 cells (pumpkin 1k: ~25k live pairs),
-            # so 4·Tsrc is ~1.6× headroom — the old 16·Tsrc pool made the
-            # pack gathers dominate stage 43 (13 ms of the pumpkin event
-            # for 84% dead slots). Overflow stays observable (pair_over
-            # below) like every other capacity.
+            # so 4·Tsrc is ~1.6× headroom — a 16·Tsrc pool made the pack
+            # gathers move 84% dead slots. Overflow stays observable
+            # (pair_over below) like every other capacity.
             PAIR_CAP = int(min(C * cull_cap, max(4 * Tsrc, 1 << 15)))
             cell_ids = jnp.broadcast_to(
                 jnp.arange(C, dtype=jnp.int32)[:, None], (C, cull_cap)
@@ -803,30 +744,11 @@ def prepare_fracture(
                     conv, tri_corners[pair_tri],
                     cell_planes_a[pair_cell], cell_pmask_a[pair_cell],
                 ), None, None
-            from surtr_tpu.ops.clip_pallas import (
-                _target_is_tpu as _soup_on_tpu,
+            poly, nvp, mrun_drops = clip_polys_by_rows(
+                tri_corners[pair_tri], pair_valid,
+                cell_planes_a[pair_cell], cell_pmask_a[pair_cell],
+                seg_starts=pstart, seg_id=pair_cell,
             )
-
-            if _soup_on_tpu():
-                # One kernel for the whole K-plane fold: the XLA scan paid
-                # ~30 ops/plane of dispatch overhead plus an 80 MB per-pair
-                # plane gather (measured 51 + 19.6 ms of the pumpkin 1k
-                # event); the kernel reconstructs each lane's plane table
-                # with a one-hot MXU matmul instead.
-                from surtr_tpu.ops.soup_clip_pallas import (
-                    soup_clip_pooled_pallas,
-                )
-
-                poly, nvp, mrun_drops = soup_clip_pooled_pallas(
-                    tri_corners[pair_tri], pair_valid, pair_cell,
-                    cell_planes_a, cell_pmask_a,
-                )
-            else:
-                poly, nvp, mrun_drops = clip_polys_by_rows(
-                    tri_corners[pair_tri], pair_valid,
-                    cell_planes_a[pair_cell], cell_pmask_a[pair_cell],
-                    seg_starts=pstart, seg_id=pair_cell,
-                )
             if profile_stage == 44:  # sub-profile: pooled clip fold
                 return _psum(conv, poly, nvp, mrun_drops), None, None
             fans, fcnt = fan_triangles(poly, nvp)                  # (PC,S,3,3)
@@ -890,8 +812,8 @@ def prepare_fracture(
     cand_ok = jnp.ones((C,), bool)
     # Every candidate shares the one closed SOURCE solid here, so the
     # inside-solid queries (island merge tests AND exact-cap probes) sample
-    # a precomputed parity grid instead of per-query winding numbers
-    # (~420 ms/event at pumpkin scale). The build costs ~R²·T·R compares —
+    # a precomputed parity grid instead of per-query winding numbers. The
+    # build costs ~R²·T·R compares —
     # only worth it when the query volume (candidates × probes × source
     # tris) dwarfs it; tiny sources / few cells keep the exact winding path.
     Tsrc_i = tri_corners.shape[0]
@@ -966,8 +888,8 @@ def _finish_pieces(
     inside-solid parity grid when every candidate shares one source solid
     (prepare) — used by the exact-caps probes.
 
-    The refit clip runs as ONE batched plane fold (the Pallas VMEM kernel on
-    TPU) — per-candidate work around it stays vmapped.
+    The refit clip runs as ONE batched plane fold — per-candidate work
+    around it stays vmapped.
 
     Returns (conv2, mtris2, mmask2, cand_valid, cap_dropped)."""
     F, S = cfg.max_faces, cfg.max_face_verts
@@ -989,8 +911,6 @@ def _finish_pieces(
     cand_valid = ~conv.is_empty() & (has_tris | inside)
     if profile_stage == 45:  # sub-profile: occupancy only
         return _psum(conv, mtris, mmask, cand_valid)
-
-    from surtr_tpu.ops.clip_pallas import _target_is_tpu
 
     cap_dropped = jnp.int32(0)
     if cfg.exact_caps:
@@ -1027,17 +947,9 @@ def _finish_pieces(
             conv, mtris, mmask, cut_planes, cut_mask
         )
 
-    if cfg.refitting_point_limit <= 4 and _target_is_tpu():
-        # One kernel for the whole tetra-hull + k-DOP refit (the vmapped
-        # XLA chain is ~25 small ops per extreme point — the largest slice
-        # of this stage); see ops/refit_pallas.py.
-        from surtr_tpu.ops.refit_pallas import refit_planes_batch_pallas
-
-        slabs, slab_m = refit_planes_batch_pallas(pool, pool_m)
-    else:
-        slabs, slab_m = jax.vmap(
-            lambda v, m: refit_planes(v, m, cfg.refitting_point_limit)
-        )(pool, pool_m)
+    slabs, slab_m = jax.vmap(
+        lambda v, m: refit_planes(v, m, cfg.refitting_point_limit)
+    )(pool, pool_m)
     if profile_stage == 46:  # sub-profile: + pool build + refit planes
         return _psum(conv, mtris, mmask, cand_valid, slabs, slab_m)
     conv2 = clip_planes_batch(conv, slabs, slab_m)
@@ -1110,120 +1022,6 @@ def _pack_candidates(conv, mtris, mmask, valid, group, tag, vol, P, Tp, F, S):
     )
 
 
-def _pooled_job_mesh_clip(jmesh, jmmask, jcpl, jcpm, Tp: int):
-    """Clip each job's triangle pool by its own plane list via the pooled
-    soup-clip kernel (ops/soup_clip_pallas.py on TPU; clip_polys_by_rows
-    off-TPU).
-
-    jmesh: (J, Tj, 3, 3); jmmask: (J, Tj); jcpl: (J, K, 4); jcpm: (J, K).
-    Returns (mtris (J, Tp, 3, 3), mmask (J, Tp), dropped) — the same
-    contract as the vmapped ``clip_trisoup`` path (fan order per job is tri
-    order; the in-plane drop rule context is per job, block-local inside
-    the kernel — the prepare pair pool's documented divergence).
-
-    On TPU the (job, tri) lanes are CULLED and PACKED before the kernel:
-    a lane whose triangle's bounding sphere is separated from its cell by
-    some cell plane clips to empty — exact to drop — and most jobs hold a
-    full Tj-slot copy of their source piece's surface while only the tris
-    near the cell survive, so the raw J·Tj pool runs ~10-25% occupied
-    (iframe pool measured ~9k of 32768 pre-cull). Packing valid lanes
-    (stable, job-major order preserved) into a PC·3/8 pool cuts both the
-    kernel blocks and the fan/pack glue ~2.7×; pool overflow drops whole
-    lanes (counted, 1 tri each). The in-plane drop-rule context then sees
-    only surviving tris — same measure-zero divergence class as the
-    kernel's block-local context.
-    """
-    from surtr_tpu.ops.clip_pallas import _target_is_tpu
-    from surtr_tpu.ops.linalg import pack_rows
-    from surtr_tpu.ops.mesh_clip import clip_polys_by_rows, fan_triangles
-    from surtr_tpu.ops.soup_clip_pallas import soup_clip_pooled_pallas
-
-    J, Tj = jmmask.shape
-    PC = J * Tj
-    pair_job = jnp.repeat(jnp.arange(J, dtype=jnp.int32), Tj)
-    pair_valid = jmmask.reshape(PC)
-    pair_tris = jmesh.reshape(PC, 3, 3)
-    import os
-
-    on_tpu = _target_is_tpu()
-    pack = (
-        on_tpu and PC >= 8192
-        and os.environ.get("SURTR_MESH_PACK", "1") == "1"
-    )
-    over_drop = jnp.int32(0)
-
-    if pack:
-        # Exact (job, tri)-level cull: any cell plane separating the tri's
-        # bounding sphere proves an empty clip.
-        tcent = jnp.mean(jmesh, axis=2)                   # (J, Tj, 3)
-        trad = jnp.sqrt(
-            jnp.max(jnp.sum((jmesh - tcent[:, :, None]) ** 2, -1), axis=-1)
-        )                                                 # (J, Tj)
-        dist = (
-            jnp.einsum(
-                "jkx,jtx->jtk", jcpl[..., :3], tcent,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            + jcpl[..., 3][:, None, :]
-        )                                                 # (J, Tj, K)
-        sep = jnp.any(
-            jcpm[:, None, :] & (dist > trad[..., None] + 1e-6), axis=-1
-        )
-        pair_valid = pair_valid & ~sep.reshape(PC)
-
-        PPOOL = min(PC, max(2048, (PC * 3) // 8))
-        order = jnp.argsort(
-            jnp.where(pair_valid, 0, 1).astype(jnp.int32), stable=True
-        )
-        sel = order[:PPOOL]
-        sel_ok = pair_valid[sel]
-        over_drop = jnp.sum(pair_valid) - jnp.sum(sel_ok)
-        pair_tris = pair_tris[sel]
-        pair_valid = sel_ok
-        # Sentinel job J for dead lanes: its one-hot column is absent, so
-        # the kernel sees zero planes; nv stays 0 via the validity lane.
-        pair_job = jnp.where(sel_ok, pair_job[sel], J)
-        NL = PPOOL
-        pstart = jnp.searchsorted(
-            pair_job, jnp.arange(J + 1, dtype=jnp.int32), side="left"
-        ).astype(jnp.int32)
-    else:
-        NL = PC
-        pstart = jnp.arange(J + 1, dtype=jnp.int32) * Tj
-
-    if on_tpu:
-        poly, nvp, mrun_drops = soup_clip_pooled_pallas(
-            pair_tris, pair_valid, pair_job, jcpl, jcpm
-        )
-    else:
-        poly, nvp, mrun_drops = clip_polys_by_rows(
-            pair_tris, pair_valid, jcpl[pair_job], jcpm[pair_job],
-            seg_starts=pstart, seg_id=pair_job,
-        )
-    fans, fcnt = fan_triangles(poly, nvp)                 # (NL, S, 3, 3)
-
-    # Per-job Tp clamp BEFORE the global pack (a pair emits only into its
-    # job's remaining budget — same bookkeeping as prepare's pair pool;
-    # lanes are job-contiguous, pstart from searchsorted when packed).
-    cumf = jnp.concatenate([jnp.zeros((1,), jnp.int32), jnp.cumsum(fcnt)])
-    jobbase = cumf[pstart]                                # (J+1,)
-    off = cumf[:-1] - jobbase[jnp.clip(pair_job, 0, J - 1)]  # (NL,)
-    allowed = jnp.clip(Tp - off, 0, fcnt)
-    fan_drop = jnp.sum(fcnt * pair_valid) - jnp.sum(allowed * pair_valid)
-    Sfan = fans.shape[1]
-    packed, _ftot = pack_rows(fans.reshape(NL, Sfan, 9), allowed, J * Tp)
-    cuma = jnp.concatenate([jnp.zeros((1,), jnp.int32), jnp.cumsum(allowed)])
-    fanbase = cuma[pstart]                                # (J+1,)
-    jobfan = fanbase[1:] - fanbase[:-1]                   # (J,) ≤ Tp
-    slot_t = jnp.arange(Tp, dtype=jnp.int32)
-    idx = jnp.clip(fanbase[:-1, None] + slot_t[None], 0, J * Tp - 1)
-    mmask = slot_t[None, :] < jobfan[:, None]
-    mtris = jnp.where(
-        mmask[..., None, None], packed[idx].reshape(J, Tp, 3, 3), 0.0
-    )
-    return mtris, mmask, fan_drop + mrun_drops + over_drop
-
-
 # ----------------------------------------------------------------------------
 # do_fracture  (reference stack D)
 # ----------------------------------------------------------------------------
@@ -1246,8 +1044,7 @@ def do_fracture(
     ``target_group`` is either a scalar group id or a (P,) boolean PIECE mask
     selecting several compounds at once — a radial impact fractures every
     affected body in ONE dispatch (the reference fans out per body on the
-    host, Surtr.cpp:251-253; round 1 mirrored that with a full rebuild per
-    body, ~150 ms/event).
+    host, Surtr.cpp:251-253).
 
     partial=True uses the 128-cell impact-local pattern and leaves
     out-of-sphere pieces attached to their parent compound (bind[0]
@@ -1296,18 +1093,21 @@ def do_fracture(
     src_mmask = pieces.mesh_valid[sel] & sel_ok[:, None]
 
     # --- ApplyFracture: A × C grid clip (Surtr.cpp:2129-2146), flattened to
-    # one batched plane fold (Pallas VMEM kernel on TPU).
+    # one batched plane fold.
     N0 = A * C
     # Pre-fold job cull (partial mode): job (a, c) can be non-empty only if
     # NO cell plane separates piece a's bounding sphere from cell c — exact,
     # since the cell IS the intersection of its half-spaces (false keeps
     # fold to empty as before; false drops are impossible). The clustered
-    # partial pattern leaves ~3% of the grid alive (cube32 measured 2.6%),
-    # so folding only a JPOOL pool cuts the batched fold ~4×. General mode
+    # partial pattern leaves ~3% of the grid alive on a first impact (cube32
+    # measured 2.6%), so folding only a JPOOL pool halves the batched fold.
+    # Repeated clicks at one spot hit many small pieces at once: at the
+    # reference settings (A=32, C=128) a second click keeps ~1.4k jobs
+    # alive, and a smaller pool drops real fragments. General mode
     # keeps the full grid (wide patterns overlap many cells and the
     # pre-cull's index-order overflow priority is worse than the post-fold
     # volume-order compaction).
-    JPOOL = min(N0, max(256, N0 // 4)) if partial else N0
+    JPOOL = min(N0, max(256, N0 // 2)) if partial else N0
     if JPOOL < N0:
         fvs = src_conv.face_verts                          # (A, F, S, 3)
         smA = src_conv.slot_mask()
@@ -1373,7 +1173,7 @@ def do_fracture(
     # fragments and is counted (the usual observable-cap policy). The
     # general pattern spreads wide, so its cap is looser.
     alive_job = ~conv.is_empty() & jsel_ok
-    JCAP = min(JPOOL, max(128, N0 // (8 if partial else 2)))
+    JCAP = min(JPOOL, max(128, N0 // (4 if partial else 2)))
     volj, _ = moments(conv)
     scorej = jnp.where(alive_job, volj, -1.0)
     jtake = jnp.argsort(-scorej)[:JCAP]
@@ -1391,24 +1191,9 @@ def do_fracture(
     jmmask = src_mmask[src_of] & jvalid[:, None]
     jcpl = cells.planes[cell_of]
     jcpm = cells.face_mask()[cell_of]
-    use_pool = (
-        jmmask.size >= 65536
-        if cfg.mesh_pair_pool == "auto"
-        else bool(cfg.mesh_pair_pool)
-    )
-    if use_pool:
-        # Flat (job, tri) lanes through the pooled soup-clip kernel — wins
-        # at model scale where the vmapped clip_trisoup's K-plane XLA scan
-        # pays ~30 ops/plane of dispatch overhead over a huge job pool; at
-        # the 32k interactive-frame pool the vmapped path measured 1 ms
-        # faster end-to-end ("auto" crossover above).
-        mtris, mmask, mdrop = _pooled_job_mesh_clip(
-            jmesh, jmmask, jcpl, jcpm, Tp
-        )
-    else:
-        mtris, mmask, mdrop = jax.vmap(
-            lambda me, mm, pl, pm_: clip_trisoup(me, mm, pl, pm_, max_out=Tp)
-        )(jmesh, jmmask, jcpl, jcpm)
+    mtris, mmask, mdrop = jax.vmap(
+        lambda me, mm, pl, pm_: clip_trisoup(me, mm, pl, pm_, max_out=Tp)
+    )(jmesh, jmmask, jcpl, jcpm)
 
     if profile_stage <= 2:  # + mesh clip
         return _psum(conv, mtris, mmask, mdrop), None
@@ -1543,10 +1328,10 @@ def split_groups_by_contact(pieces: PieceSet, eps, exact: bool = False):
     runs only against the KP candidate pieces: (P·F, KP, F) with every term
     elementwise and the partner-face axis min-reduced INSIDE one fused
     chain — a convex piece owns at most one real face on a given plane, so
-    "nearest opposite-coplanar face of partner j" is exact. History: the
-    all-pairs face table ((P·F)² ≈ 67M entries at the interactive-frame
-    pool) measured ~3.4 ms/event; the (P·F, P, F) fused chain ~4.2 ms at
-    F=26 — the KP=48 prune cuts its element count ~5×. The prune is
+    "nearest opposite-coplanar face of partner j" is exact. The all-pairs
+    face table would hold (P·F)² ≈ 67M entries at the interactive-frame
+    pool; the KP prune cuts the (P·F, P, F) chain's element count ~5×.
+    The prune is
     conservative (threshold 2·(r_i+r_j) covers face-sphere contact through
     non-centered faces); candidate overflow beyond KP drops the FARTHEST
     pieces only.
@@ -1660,9 +1445,8 @@ def split_groups_by_contact(pieces: PieceSet, eps, exact: bool = False):
         # a convex partner contributes at most one opposite face on a
         # plane, so partner-level top-4 covers the old face-level top-4).
         # The SAT runs on a packed FACE pool: only faces with ≥1 surviving
-        # candidate participate (~10-25% of the pf slots on real events —
-        # the all-slot vmap measured ~2.4 ms of the 3.2 ms split at the
-        # interactive-frame pool). Pool overflow drops the HIGHEST face
+        # candidate participate (~10-25% of the pf slots on real events).
+        # Pool overflow drops the HIGHEST face
         # slots (stable order) and is returned as split_overflow.
         K4 = min(4, KP)
         S = pieces.convex.S
@@ -1695,7 +1479,9 @@ def split_groups_by_contact(pieces: PieceSet, eps, exact: bool = False):
             u, v = plane_basis(ni)
             ai = fv_flat[fsel[i]]                           # (S, 3)
             mi = jnp.arange(S) < nv_flat[fsel[i]]
-            a2 = jnp.stack([ai @ u, ai @ v], axis=-1)       # (S, 2)
+            a2 = jnp.stack(
+                [jnp.sum(ai * u, -1), jnp.sum(ai * v, -1)], axis=-1
+            )                                               # (S, 2)
             bj = fv_flat[cand[i]]                           # (K4, S, 3)
             mj = jnp.arange(S)[None, :] < nv_flat[cand[i]][:, None]
             b2 = jnp.stack(

@@ -1,2 +1,2 @@
-"""Asset IO — the TPU-era answer to the reference's Assimp path (SURVEY §2.2
+"""Asset IO — this framework's answer to the reference's Assimp path (SURVEY §2.2
 T3): host-side OBJ parsing + vertex welding + padded device buffers."""

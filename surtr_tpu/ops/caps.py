@@ -42,8 +42,8 @@ Performance shape (round 4): candidate edge RECORDS [p, q, face, kind] are
 front-compacted into a flat per-candidate pool of ``cfg.cap_edge_pool`` slots
 BEFORE any inside-solid probing — the padded (CF, NA) + (CF, S, X+1) record
 grid holds ~4.4k slots of which ~100 are real at model scale, and the probe
-query (two points per record) was 9.5M parity-grid gathers ≈ 80 ms of the
-pumpkin event when issued at padded width. Probe geometry (midpoint + inward
+query (two points per record) would be 9.5M parity-grid gathers per model-
+scale event if issued at padded width. Probe geometry (midpoint + inward
 nudge ± off-plane excursion) is derivable from [p, q, face plane] alone, so
 it is computed only at the compacted slots.
 """
@@ -99,8 +99,7 @@ def _cap_candidates_one(
 
     # Front-compact the cut faces and gather their data with ONE one-hot
     # contraction — vmapped top_k lowers to batched variadic sorts and
-    # vmapped row gathers are ms-scale on this backend (the round-2/3
-    # measured rules the whole pipeline is built around).
+    # vmapped row gathers to batched gathers.
     cut_sel = match_cut_faces(conv, cut_planes, cut_mask, mas)   # (F,)
     pos = jnp.cumsum(cut_sel.astype(jnp.int32)) - cut_sel.astype(jnp.int32)
     oh = (
@@ -110,8 +109,8 @@ def _cap_candidates_one(
     cf_ok = jnp.arange(CF) < n_cf
     n_cf_over = jnp.maximum(n_cf - CF, 0)
 
-    # Broadcast-multiply-sum, not einsum: (CF, F) x (F, ...) is the tiny
-    # batched-matmul shape the MXU handles poorly (ops/linalg.py).
+    # Broadcast-multiply-sum, not einsum: (CF, F) x (F, ...) is a tiny
+    # batched matmul (ops/linalg.py), and this keeps full f32.
     loops = jnp.sum(
         oh[:, :, None, None] * conv.face_verts[None], axis=1
     )                                                            # (CF, S, 3)
@@ -122,8 +121,7 @@ def _cap_candidates_one(
 
     # --- dA: on-plane edges of the final clipped surface soup -------------
     # Vertex distances to every cut face's plane: (CF, Tp, 3) — broadcast
-    # multiply-add on the VPU, NOT einsum (batched tiny matmuls are the
-    # known-bad shape on this backend, see ops/linalg.py).
+    # multiply-add, not einsum (a batched tiny matmul, see ops/linalg.py).
     dv = (
         pls[:, None, None, 0] * mtris[None, :, :, 0]
         + pls[:, None, None, 1] * mtris[None, :, :, 1]
@@ -391,7 +389,7 @@ def cap_fans_batch(
         # closed (that is the point of this module), parity is robust to
         # the signed canceling fan pairs (two crossings), and the winding
         # form's per-(probe, tri) atan2 was the caps path's largest real
-        # cost (~13 ms of ~20 at 1k cube candidates).
+        # cost.
         inside = jax.vmap(point_in_mesh)(
             probes.reshape(N, 2 * E, 3), solid_t, solid_m
         ).reshape(N, E, 2)

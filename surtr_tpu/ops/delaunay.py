@@ -7,7 +7,7 @@ a Voronoi dual that connects circumcenters of adjacent tets (DT3D.h:269-315).
 (Dead code in the reference's shipping path — voro++ is used instead — but
 named by BASELINE.json as a required capability; SURVEY §2.1 C9.)
 
-TPU redesign: padded tet table (T_max, 4) + valid mask; one ``fori_loop``
+Design: padded tet table (T_max, 4) + valid mask; one ``fori_loop``
 per point insertion; the cavity (tets whose circumsphere contains the point)
 is removed and its boundary faces (faces appearing exactly once in the
 cavity) are re-joined to the new point — all masked array ops, no recursion.

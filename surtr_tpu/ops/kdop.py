@@ -3,8 +3,8 @@
 Replacement for ``Kdop::KdopContainer`` (/root/reference/Src/Kdop.cpp:10-179):
 per direction, track the min/max support over the vertex set and emit a pair of
 outward slab planes pushed out by ``gap`` (reference: Calc with
-``maxAxisScale / planeGapInv``, Kdop.cpp:38-50). On TPU the support pass is a
-single masked matmul — MXU-shaped by construction.
+``maxAxisScale / planeGapInv``, Kdop.cpp:38-50). The support pass is a single
+masked product of the vertex set with the direction table.
 
 ``ClipWithPolyhedron`` (Kdop.cpp:166-179) becomes: feed the slab planes to
 ``clip.clip_poly_planes``.
@@ -37,8 +37,8 @@ def kdop_planes(
     from surtr_tpu.ops.linalg import supports
 
     K = dirs.shape[-2]
-    # VPU broadcast contraction: full f32 (no bf16 truncation) and no
-    # batched-tiny-matmul lowering (see ops/linalg.py).
+    # Broadcast contraction: full f32 at any matmul precision and no
+    # batched tiny matmul (see ops/linalg.py).
     t = supports(verts, jnp.broadcast_to(dirs, verts.shape[:-2] + dirs.shape[-2:]))
     big = jnp.asarray(3.4e38, t.dtype)
     m = vert_mask[..., :, None]

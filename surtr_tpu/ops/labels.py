@@ -6,8 +6,8 @@ Replaces the reference's recursive DFS flood fills:
   * convex-island flood fill over the piece contact graph
     (HandleConvexIsland queue fill, Surtr.cpp:2325-2352)
 
-TPU redesign: iterative min-label propagation with pointer jumping (log-depth),
-and boolean reachability powering on the MXU for the piece graph.
+Design: iterative min-label propagation with pointer jumping (log-depth),
+and boolean reachability powering (matrix products) for the piece graph.
 """
 
 from __future__ import annotations
@@ -18,11 +18,13 @@ import jax
 import jax.numpy as jnp
 
 
-@functools.partial(jax.jit, static_argnames=("iters", "method"))
+MATMUL_MAX_T = 64
+
+
+@functools.partial(jax.jit, static_argnames=("method",))
 def tri_soup_components(
     corners: jax.Array,
     tri_valid: jax.Array,
-    iters: int | None = None,
     tol: float = 1e-5,
     method: str | None = None,
 ):
@@ -35,25 +37,20 @@ def tri_soup_components(
     Design: one corner-coincidence pass (exact equality of tol-quantized
     coordinate triples — a multiply-XOR spatial hash collides
     systematically on symmetric meshes and sorted-run unioning costs a
-    ~50 ms batched sort at fracture scale) reduces to a (T, T) triangle
-    adjacency, closed by one of two equivalent schemes (``method``,
-    default per backend — both give identical labels, diameter ~2^iters):
+    batched sort at fracture scale) reduces to a (T, T) triangle
+    adjacency, closed by one of two schemes (``method``):
 
-    * ``"matmul"`` (TPU): ceil(log2 T) boolean matrix squarings in bf16 on
-      the MXU (0/1 exact in bf16; counts accumulate in f32). O(T³) per
-      squaring but MXU-native — measured 2.4× faster than relax+jump at
-      fracture shapes (T≈64×1024 candidates), where the jump gather is
-      the bottleneck.
-    * ``"jump"`` (CPU): min-label relaxation over adjacency rows plus
-      pointer jumping (``lab ← lab[lab]``). O(T²) per round — the
-      squarings cost ~1.6 TFLOP per candidate at T=4096 and dominated
-      the CPU test suite (12 s/candidate); relax+jump is ~1000× cheaper
-      there.
+    * ``"matmul"``: ceil(log2 T) boolean matrix squarings in bf16 (0/1
+      exact in bf16; counts accumulate in f32). O(T³) per squaring.
+    * ``"jump"``: min-label relaxation over adjacency rows plus pointer
+      jumping (``lab ← lab[lab]``), repeated to a fixed point. O(T²) per
+      round; the round count depends on the soup.
+
+    Both are exact. The default picks by size: ``"matmul"`` up to
+    MATMUL_MAX_T triangles, ``"jump"`` above.
     """
     if method is None:
-        from surtr_tpu.ops.clip_pallas import _target_is_tpu
-
-        method = "matmul" if _target_is_tpu() else "jump"
+        method = "matmul" if corners.shape[0] <= MATMUL_MAX_T else "jump"
     T = corners.shape[0]
     q = jnp.round(corners / tol).astype(jnp.int32)       # (T, 3, 3)
     # Triangle adjacency via 9 fused corner-pair equality tests — an
@@ -66,23 +63,31 @@ def tri_soup_components(
                 q[:, None, a, :] == q[None, :, b, :], axis=-1
             )
     adj = adj & tri_valid[:, None] & tri_valid[None]
-    steps = max(1, (T - 1).bit_length())
-    if iters is not None:
-        steps = min(steps, iters)
     idx = jnp.arange(T, dtype=jnp.int32)
     if method == "matmul":
         rb = (adj | jnp.eye(T, dtype=bool)).astype(jnp.bfloat16)
-        for _ in range(steps):
+        for _ in range(max(1, (T - 1).bit_length())):
             acc = jnp.dot(rb, rb, preferred_element_type=jnp.float32)
             rb = (acc > 0.5).astype(jnp.bfloat16)
         reach = rb > 0.5
         label = jnp.min(jnp.where(reach, idx[None, :], T), axis=1)
         return jnp.where(tri_valid, label, T)
-    lab = jnp.where(tri_valid, idx, T)
-    for _ in range(steps):
+
+    def relax_jump(lab):
         nb = jnp.min(jnp.where(adj, lab[None, :], T), axis=1)
         lab = jnp.minimum(lab, nb)
-        lab = jnp.minimum(lab, lab[jnp.clip(lab, 0, T - 1)])
+        return jnp.minimum(lab, lab[jnp.clip(lab, 0, T - 1)])
+
+    def body(carry):
+        lab, _ = carry
+        nxt = relax_jump(lab)
+        return nxt, jnp.any(nxt != lab)
+
+    # Labels only decrease, so the loop ends; at its fixed point every edge
+    # joins equal labels and each label is its component's least index.
+    lab, _ = jax.lax.while_loop(
+        lambda c: c[1], body, (jnp.where(tri_valid, idx, T), jnp.bool_(True))
+    )
     return jnp.where(tri_valid, lab, T)
 
 
@@ -91,7 +96,8 @@ def adjacency_components(adj: jax.Array, valid: jax.Array):
     """Component label per node from a boolean adjacency matrix.
 
     Uses log-step boolean "matrix powering" (reachability closure) — each step
-    squares the reachability relation on the MXU — then labels each node by
+    squares the reachability relation with one matrix product — then labels
+    each node by
     the smallest reachable node index.
 
     adj: (N, N) bool (need not be reflexive/symmetric-clean);
@@ -103,16 +109,13 @@ def adjacency_components(adj: jax.Array, valid: jax.Array):
     r = a | jnp.eye(N, dtype=bool)
     # ceil(log2(N)) squarings: r ← r ∘ r.
     steps = max(1, (N - 1).bit_length())
-    rf = r.astype(jnp.float32)
+    # 0/1 entries are exact in bf16 and the counts accumulate in f32, so
+    # the product is exact at any matmul precision.
+    rb = r.astype(jnp.bfloat16)
     for _ in range(steps):
-        rf = jnp.minimum(
-            rf
-            + jnp.einsum(
-                "ij,jk->ik", rf, rf, precision=jax.lax.Precision.DEFAULT
-            ),
-            1.0,
-        )
-    reach = rf > 0.5
+        acc = jnp.dot(rb, rb, preferred_element_type=jnp.float32)
+        rb = (acc > 0.5).astype(jnp.bfloat16)
+    reach = rb > 0.5
     idx = jnp.arange(N, dtype=jnp.int32)
     label = jnp.min(jnp.where(reach, idx[None, :], N), axis=1)
     return jnp.where(valid, label, N)

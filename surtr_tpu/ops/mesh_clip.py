@@ -1,8 +1,8 @@
 """Visual-mesh (triangle soup) clipping and solid queries.
 
 The reference clips the visual mesh as an adjacency polyhedron with cap
-closure (Poly::ClipPolyhedron on Piece::Mesh, Surtr.cpp:1470-1472). The TPU
-redesign clips the *triangle soup* instead: each triangle × plane-list clip is
+closure (Poly::ClipPolyhedron on Piece::Mesh, Surtr.cpp:1470-1472). This
+design clips the *triangle soup* instead: each triangle × plane-list clip is
 an independent masked Sutherland–Hodgman over a small padded polygon, then a
 fan re-triangulation — fully parallel over triangles. Cut-surface caps are
 taken from the convex proxy's cap faces (DESIGN.md: documented divergence —
@@ -35,13 +35,13 @@ def _clip_polys_plane(
     reduction so unrelated cells sharing the pool don't leak into each
     other's rule. Returns same shapes. Keeps n·x + d < 0.
 
-    Cyclic-run emission (same trick as the Pallas conv clip kernel): a plane
+    Cyclic-run emission (same trick as the GPU plane-fold kernel): a plane
     cuts a convex loop in at most two edges, so the kept vertices are one
     contiguous cyclic run and the cut adds exactly [exit, enter] after it.
     Emitting [rotated run, exit, enter] (a rotation of the classic SH
     stream — downstream fan triangulation is rotation-invariant) replaces
     the O(S²) one-hot compaction, which dominated the model-scale mesh
-    clip (measured 152 ms of the pumpkin 1k fold)."""
+    clip."""
     T, S, _ = poly.shape
     if plane.ndim == 1:
         n, d = plane[:3], plane[3]
@@ -352,8 +352,8 @@ def build_parity_grid(corners: jax.Array, tri_valid: jax.Array, res: int = 64):
     one fused (res², T, res) count — shared by every later query). The
     fracture pipeline's island-connectivity sweep asks ~10⁶ inside-solid
     queries per event against the SAME source solid; per-query winding
-    numbers (winding_inside) cost P·T·atan2 and measured ~420 ms of the
-    model-scale decomposition, while sampling this grid is one gather.
+    numbers (winding_inside) cost P·T·atan2, while sampling this grid is
+    one gather.
 
     Column x/y coordinates sit at irrational fractions of a cell so rays
     never hit the axis-aligned vertices/edges of boxy models exactly (an

@@ -2,7 +2,7 @@
 
 Replacement for the external **voro++** library (reference usage:
 /root/reference/Src/Surtr.cpp:2004-2067 — unit-cube container, per-cell
-face-vertex polytope extraction). TPU-first design (SURVEY.md §2.2 T1): the
+face-vertex polytope extraction). Design (SURVEY.md §2.2 T1): the
 Voronoi cell of seed i inside a convex domain is the domain clipped by the
 bisector half-spaces toward every other seed. We clip against the k-nearest
 seeds only (nearest first, so the cell shrinks early); with k >= the true

@@ -2,7 +2,7 @@
 geometry semantics, structured like the reference's adjacency-polyhedron
 algorithms (Poly::ClipPolyhedron family, SURVEY §4 "pipeline parity tests").
 
-This is the "CPU ref path" of BASELINE.json config 0: the TPU kernels are
+This is the "CPU ref path" of BASELINE.json config 0: the device kernels are
 validated against it for volumes, centroids and fragment counts. Deliberately
 a *different* algorithm (vertex-adjacency surgery vs face-soup clipping) so
 agreement is strong evidence of correctness.

@@ -1,4 +1,4 @@
-"""Rigid-body dynamics — the TPU-native replacement for NVIDIA PhysX
+"""Rigid-body dynamics — the on-device replacement for NVIDIA PhysX
 (SURVEY §2.2 T2): broadphase, convex contacts, impulse solving, symplectic
 integration, scene queries, all inside one jitted step."""
 

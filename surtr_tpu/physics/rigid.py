@@ -63,7 +63,7 @@ def rotate(q: jax.Array, v: jax.Array) -> jax.Array:
 
 
 def world_inv_inertia(q: jax.Array, inv_I_body: jax.Array) -> jax.Array:
-    """R I⁻¹ Rᵀ as broadcast sums (batched 3×3 einsums lower badly on TPU)."""
+    """R I⁻¹ Rᵀ as broadcast sums (no batched 3×3 matmuls)."""
     R = quat_to_mat(q)
     RI = jnp.sum(R[..., :, :, None] * inv_I_body[..., None, :, :], axis=-2)
     return jnp.sum(RI[..., :, None, :] * R[..., None, :, :], axis=-1)

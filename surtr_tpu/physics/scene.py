@@ -47,13 +47,6 @@ class PhysicsScene:
                              # the sleeper after wake_push_frames (the
                              # creeping-pile anchor fix; bounce cycles
                              # reset it at every separation/turnaround)
-    warm_pair: jax.Array     # (Np, K) i32 previous step's pair partners
-                             # (PhysX persistent-manifold warm start)
-    warm_fid: jax.Array      # (Np, M·K) i32 previous contact feature ids
-                             # (slot = m·K + k; 0 = none)
-    warm_lam: jax.Array      # (Np, M·K·3) f32 accumulated impulse state
-                             # [λn, λu, λv] per slot (tangent basis is
-                             # re-derived from the step's normals)
 
     @property
     def B(self) -> int:
@@ -77,7 +70,7 @@ def _dedup_verts(fv: jax.Array, sm: jax.Array, Vh: int):
     is_first = m & (first == idx)
     tgt = jnp.cumsum(is_first.astype(jnp.int32)) - is_first.astype(jnp.int32)
     # Scatter-free compaction: one-hot (Vh, n) contraction instead of a
-    # batched scatter (vmapped scatters are ~10× slower on this backend).
+    # batched scatter.
     keep = is_first & (tgt < Vh)
     onehot = (
         keep[None, :] & (tgt[None, :] == jnp.arange(Vh)[:, None])
@@ -212,10 +205,9 @@ def build_scene(
     seg_start = jnp.searchsorted(
         key_sorted, jnp.arange(B + 1, dtype=jnp.int32)
     ).astype(jnp.int32)
-    # ONE packed (P, D) gather for every per-piece field (row gathers cost
-    # ~1 ms each on this backend — six separate ``[order]`` gathers were
-    # most of the rebuild stage of the fused frame). Bools ride as 0/1 f32,
-    # the owner id as f32 (exact for B ≤ 2^24).
+    # ONE packed (P, D) gather for every per-piece field instead of six
+    # separate ``[order]`` gathers. Bools ride as 0/1 f32, the owner id as
+    # f32 (exact for B ≤ 2^24).
     F = planes_local.shape[1]
     Ne = edges.shape[1]
     f32 = jnp.float32
@@ -267,14 +259,6 @@ def build_scene(
         seg_start=seg_start,
         sleep_frames=jnp.zeros((B,), jnp.int32),
         push_frames=jnp.zeros((B,), jnp.int32),
-        warm_pair=jnp.full((P, cfg.max_neighbors), -1, jnp.int32),
-        warm_fid=jnp.zeros(
-            (P, max(1, cfg.manifold_points) * cfg.max_neighbors), jnp.int32
-        ),
-        warm_lam=jnp.zeros(
-            (P, max(1, cfg.manifold_points) * cfg.max_neighbors * 3),
-            jnp.float32,
-        ),
     )
 
 

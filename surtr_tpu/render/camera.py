@@ -7,6 +7,7 @@ to the scene bounds (Surtr.cpp:289-327), NDC depth in [0, 1] (D3D style).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -21,7 +22,7 @@ def look_at(eye, target, up=(0.0, 1.0, 0.0)):
     u = jnp.cross(r, f)
     m = jnp.eye(4, dtype=jnp.float32)
     m = m.at[0, :3].set(r).at[1, :3].set(u).at[2, :3].set(-f)
-    t = jnp.stack([-jnp.dot(r, eye), -jnp.dot(u, eye), jnp.dot(f, eye)])
+    t = jnp.stack([-jnp.sum(r * eye), -jnp.sum(u * eye), jnp.sum(f * eye)])
     return m.at[:3, 3].set(t)
 
 
@@ -57,4 +58,4 @@ def light_view_proj(light_dir, center, radius):
     up = jnp.where(jnp.abs(d[1]) > 0.95, jnp.array([1.0, 0, 0]), jnp.array([0, 1.0, 0]))
     view = look_at(eye, center, up)
     proj = ortho(-radius, radius, -radius, radius, 0.1, 4.0 * radius)
-    return proj @ view
+    return jnp.matmul(proj, view, precision=jax.lax.Precision.HIGHEST)

@@ -1,25 +1,24 @@
-"""Pallas TPU rasterization kernel.
+"""Tile rasterizer for NVIDIA GPUs: a Pallas kernel on the Triton route.
 
-The jnp rasterizer (render/raster.py) is memory-bound: every (pixels ×
-tri-block) edge-function buffer round-trips HBM, ~350 GB per 512² frame.
-This kernel keeps the tile's z-buffer and the triangle chunk in VMEM for the
-whole triangle loop — the classic tile rasterizer mapped onto the TPU.
+The jnp rasterizer (render/raster.py) sweeps every row tile against every
+triangle block and streams each (pixels × block) edge-function buffer
+through device memory. This kernel gives each 16×16 screen tile its own
+program: the tile's z-buffer stays in registers while the program loops
+over the triangle chunks binned to it.
 
 Binning: triangles are sorted by the tile of their bbox center (outside the
-kernel, one argsort) so each 128-triangle chunk is spatially coherent; the
-kernel skips a chunk when its precomputed bbox misses the tile (lax.cond on
-four scalar compares). On fragment scenes most tiles touch a handful of
-chunks, which turns the all-pairs (tiles × triangles) sweep into near
+kernel, one argsort) so each CHUNK of sorted triangles is spatially
+coherent. Each tile loops only over its range [lo, hi) of chunks whose
+bboxes overlap it, and skips a chunk inside that range when the chunk's
+bbox misses the tile (four scalar compares). On fragment scenes most tiles
+touch a handful of chunks, which turns the all-pairs sweep into near
 output-proportional work.
 
-Layout: triangle chunks live on the sublane axis, tile pixels on the lane
-axis — all intermediates are (CHUNK, PX) with PX a multiple of 128, which is
-the shape Mosaic vectorizes natively (reshapes between (TH, TW) and flat
-pixel vectors are not supported in-kernel, so tiles are stored as flat
-(tiles, PX) rows and reshaped outside).
-
-Used on the TPU backend; the jnp path remains the CPU/test reference —
-outputs agree exactly.
+Outputs agree with the jnp path: the same edge functions, the same (0, 1)
+depth range, and on equal depth the lowest caller triangle index wins (the
+jnp sweep's order), so adjacent fragments' coincident cut faces resolve the
+same way. The winner's attributes are fetched by index after the kernel (a
+native gather), not inside it.
 """
 
 from __future__ import annotations
@@ -29,59 +28,55 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
 BIG = 3.4e38
+IMAX = 2**31 - 1
+TILE = 16        # tile edge in pixels: one program per TILE × TILE tile
+CHUNK = 16       # triangles per chunk: one (CHUNK, TILE²) slab per step
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
 def _raster_tile_kernel(
-    rng_ref,    # (tiles, 2) i32 in SMEM: [chunk lo, chunk hi) per tile — the
-    # triangles are tile-sorted, so each tile only overlaps a contiguous-ish
-    # chunk range; sweeping all chunks cost 59 ms/frame at 16k tris.
-    attrs_ref,  # (T_pad, 10+A): ax ay bx by cx cy za zb zc ok [+ A G-buffer
-    # attribute columns] — one VMEM buffer instead of per-column (T_pad, 1)
-    # buffers, each of which would be lane-padded to 128 and cost 10× the
-    # VMEM.
-    bbox_ref,   # (nblk, 4): bx0 bx1 by0 by1 per chunk
-    depth_ref, tid_ref,
-    *maybe_gbuf_ref,
-    TH: int, TW: int, CHUNK: int, T_pad: int, ntx: int, A: int = 0,
+    lo_ref, hi_ref,                        # (tiles_p,) i32 chunk range
+    attrs_ref,                             # (10, T_pad) ax ay bx by cx cy
+                                           #   za zb zc ok
+    ids_ref,                               # (T_pad,) i32 caller tri index
+    bx0_ref, bx1_ref, by0_ref, by1_ref,    # (nblk_p,) chunk bboxes
+    depth_ref, tid_ref,                    # (TILE²,) this tile's outputs
+    *, ntx: int,
 ):
     t = pl.program_id(0)
     ti = t // ntx
     tj = t % ntx
-    PX = TH * TW
+    PX = TILE * TILE
     k = jax.lax.broadcasted_iota(jnp.int32, (1, PX), 1)
-    py = (k // TW + ti * TH).astype(jnp.float32) + 0.5       # (1, PX)
-    px = (k % TW + tj * TW).astype(jnp.float32) + 0.5
-    tile_x0 = (tj * TW).astype(jnp.float32)
-    tile_x1 = tile_x0 + TW
-    tile_y0 = (ti * TH).astype(jnp.float32)
-    tile_y1 = tile_y0 + TH
-
-    nblk = T_pad // CHUNK
-    crow = jax.lax.broadcasted_iota(jnp.int32, (CHUNK, PX), 0)
+    py = (k // TILE + ti * TILE).astype(jnp.float32) + 0.5     # (1, PX)
+    px = (k % TILE + tj * TILE).astype(jnp.float32) + 0.5
+    tile_x0 = (tj * TILE).astype(jnp.float32)
+    tile_x1 = tile_x0 + TILE
+    tile_y0 = (ti * TILE).astype(jnp.float32)
+    tile_y1 = tile_y0 + TILE
 
     def body(b, carry):
-        # Chunk-level binning reject: triangles are tile-sorted, so the
-        # chunk bbox is tight and most chunks miss most tiles.
-        cb = bbox_ref[pl.ds(b, 1), :]                         # (1, 4)
-        cbx0, cbx1, cby0, cby1 = cb[0, 0], cb[0, 1], cb[0, 2], cb[0, 3]
         overlap = (
-            (cbx0 <= tile_x1) & (cbx1 >= tile_x0)
-            & (cby0 <= tile_y1) & (cby1 >= tile_y0)
+            (bx0_ref[b] <= tile_x1) & (bx1_ref[b] >= tile_x0)
+            & (by0_ref[b] <= tile_y1) & (by1_ref[b] >= tile_y0)
         )
 
         def compute(carry):
-            depth, tid, gb = carry
-            blk = attrs_ref[pl.ds(b * CHUNK, CHUNK), :]       # (CHUNK, 10+A)
-            col = lambda j: blk[:, j:j + 1]                   # (CHUNK, 1)
+            depth, tid = carry
+            rows = pl.ds(b * CHUNK, CHUNK)
+            col = lambda j: attrs_ref[j, rows][:, None]          # (CHUNK, 1)
             ax, ay, bx, by, cx, cy = (col(j) for j in range(6))
             za, zb, zc = col(6), col(7), col(8)
             okb = col(9) > 0.5
             area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
             inv_area = jnp.where(jnp.abs(area) > 1e-12, 1.0 / area, 0.0)
-            e0 = (cx - bx) * (py - by) - (cy - by) * (px - bx)  # (CHUNK, PX)
+            e0 = (cx - bx) * (py - by) - (cy - by) * (px - bx)    # (CHUNK, PX)
             e1 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx)
             e2 = (bx - ax) * (py - ay) - (by - ay) * (px - ax)
             w0 = e0 * inv_area
@@ -93,44 +88,24 @@ def _raster_tile_kernel(
             )
             z = w0 * za + w1 * zb + w2 * zc
             z = jnp.where(cov & (z > 0) & (z < 1), z, BIG)
-            zbest = jnp.min(z, axis=0, keepdims=True)         # (1, PX)
-            best = jnp.argmin(z, axis=0, keepdims=True).astype(jnp.int32)
-            better = zbest < depth
-            depth = jnp.where(better, zbest, depth)
-            tid = jnp.where(better, b * CHUNK + best, tid)
-            if A:
-                # Winner attributes via one-hot MXU contraction — exact
-                # (0/1 coefficients select rows; bf16 splitting of the
-                # values re-sums exactly under f32 accumulation), so the
-                # G-buffer equals attr_tab[winner] bit-for-bit and the
-                # deferred shading's two ~2 ms/512² per-pixel row gathers
-                # (attribute + plane tables) disappear.
-                onehot = (crow == best).astype(jnp.float32)   # (CHUNK, PX)
-                newgb = jax.lax.dot_general(
-                    blk[:, 10:10 + A], onehot,
-                    dimension_numbers=(((0,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST,
-                )                                             # (A, PX)
-                gb = jnp.where(better, newgb, gb)
-            return depth, tid, gb
+            zbest = jnp.min(z, axis=0)                          # (PX,)
+            ids = jnp.where(z == zbest[None, :], ids_ref[rows][:, None], IMAX)
+            best = jnp.min(ids, axis=0)                         # lowest id
+            better = (zbest < depth) | ((zbest == depth) & (best < tid))
+            return (
+                jnp.where(better, zbest, depth),
+                jnp.where(better, best, tid),
+            )
 
         return jax.lax.cond(overlap, compute, lambda c: c, carry)
 
-    depth0 = jnp.full((1, PX), BIG, jnp.float32)
-    tid0 = jnp.full((1, PX), -1, jnp.int32)
-    gb0 = jnp.zeros((max(A, 1), PX), jnp.float32)
-    blo = rng_ref[t, 0]
-    bhi = rng_ref[t, 1]
-    depth, tid, gb = jax.lax.fori_loop(blo, bhi, body, (depth0, tid0, gb0))
-    # Outputs are whole-array VMEM blocks (per-tile (1, PX) rows violate the
-    # sublane tiling rule); each sequential grid step writes its own row.
-    depth_ref[pl.ds(t, 1), :] = depth
-    tid_ref[pl.ds(t, 1), :] = tid
-    if A:
-        gbuf_ref = maybe_gbuf_ref[0]
-        for a in range(A):
-            gbuf_ref[pl.ds(t, 1), a * PX : (a + 1) * PX] = gb[a : a + 1]
+    depth0 = jnp.full((PX,), BIG, jnp.float32)
+    tid0 = jnp.full((PX,), -1, jnp.int32)
+    depth, tid = jax.lax.fori_loop(
+        lo_ref[t], hi_ref[t], body, (depth0, tid0)
+    )
+    depth_ref[...] = depth
+    tid_ref[...] = tid
 
 
 @functools.partial(jax.jit, static_argnames=("W", "H", "interpret"))
@@ -141,160 +116,88 @@ def rasterize_ids_pallas(
     ok: jax.Array,
     W: int,
     H: int,
-    attr_tab: jax.Array | None = None,
     interpret: bool = False,
 ):
     """Z-buffer rasterization from screen-space triangles.
 
     sx/sy/sz: (T, 3) screen coords + ndc depth; ok: (T,) bool.
     Returns (depth (H, W), tid (H, W) i32, -1 = background). tid refers to
-    the caller's ORIGINAL triangle order (the internal tile sort is undone).
-
-    ``attr_tab`` (T, A) f32: optional per-triangle G-buffer attributes —
-    the kernel then also returns gbuf (H, W, A) = attr_tab[tid] (zeros on
-    background), selected in-kernel where the triangle data already sits in
-    VMEM (a deferred per-pixel row gather costs ~2 ms/512² on this
-    backend).
+    the caller's triangle order.
     """
-    TH, TW = 16, 128
-    CHUNK = 64
-    PX = TH * TW
     T = sx.shape[0]
-    A = 0 if attr_tab is None else attr_tab.shape[1]
-    Hp = ((H + TH - 1) // TH) * TH
-    Wp = ((W + TW - 1) // TW) * TW
-    nty, ntx = Hp // TH, Wp // TW
+    PX = TILE * TILE
+    nty = -(-H // TILE)
+    ntx = -(-W // TILE)
+    ntiles = nty * ntx
 
     # Tile-sort triangles by bbox-center tile id (invalid last) so chunks
-    # are spatially coherent and the in-kernel bbox reject fires.
-    cx_mid = jnp.mean(sx, axis=1)
-    cy_mid = jnp.mean(sy, axis=1)
-    tx = jnp.clip((cx_mid // TW).astype(jnp.int32), 0, ntx - 1)
-    ty = jnp.clip((cy_mid // TH).astype(jnp.int32), 0, nty - 1)
+    # are spatially coherent and the per-tile chunk ranges stay short.
+    tx = jnp.clip((jnp.mean(sx, axis=1) // TILE).astype(jnp.int32), 0, ntx - 1)
+    ty = jnp.clip((jnp.mean(sy, axis=1) // TILE).astype(jnp.int32), 0, nty - 1)
     key = jnp.where(ok, ty * ntx + tx, jnp.int32(1 << 30))
-    order = jnp.argsort(key)
-    # ONE packed gather for the whole sort payload (row gathers are ~ms-
-    # scale on this backend; 4 separate ones dominated the pass).
-    parts = [sx, sy, sz, ok[:, None].astype(sx.dtype)]
-    if A:
-        parts.append(attr_tab.astype(sx.dtype))
-    payload = jnp.concatenate(parts, axis=1)[order]           # (T, 10+A)
-    sx, sy, sz = payload[:, 0:3], payload[:, 3:6], payload[:, 6:9]
-    ok = payload[:, 9] > 0.5
-    attr_sorted = payload[:, 10:] if A else None
+    order = jnp.argsort(key).astype(jnp.int32)
+    sx, sy, sz, ok = sx[order], sy[order], sz[order], ok[order]
 
-    T_pad = ((T + CHUNK - 1) // CHUNK) * CHUNK
-
-    # Per-chunk screen bboxes (masked; empty chunk → inverted bbox that
-    # never overlaps).
+    T_pad = _pow2(max(T, CHUNK))
     nblk = T_pad // CHUNK
+    padT = lambda a, fill: jnp.pad(
+        a, [(0, T_pad - T)] + [(0, 0)] * (a.ndim - 1), constant_values=fill
+    )
+    okp = padT(ok, False)
 
-    def chunk_minmax(v, lo):
-        vp = jnp.pad(v, ((0, T_pad - T), (0, 0)),
-                     constant_values=BIG if lo else -BIG)
-        vp = jnp.where(
-            jnp.pad(ok, (0, T_pad - T))[:, None], vp,
-            BIG if lo else -BIG,
-        )
-        r = vp.reshape(nblk, CHUNK * 3)
-        return (jnp.min(r, axis=1) if lo else jnp.max(r, axis=1))[:, None]
+    # Per-chunk screen bboxes over valid triangles (an empty chunk gets an
+    # inverted bbox that never overlaps).
+    def chunk_ext(v, lo):
+        fill = BIG if lo else -BIG
+        vp = jnp.where(okp[:, None], padT(v, fill), fill).reshape(nblk, -1)
+        return jnp.min(vp, axis=1) if lo else jnp.max(vp, axis=1)
 
-    bx0 = chunk_minmax(sx, True)
-    bx1 = chunk_minmax(sx, False)
-    by0 = chunk_minmax(sy, True)
-    by1 = chunk_minmax(sy, False)
+    bx0, bx1 = chunk_ext(sx, True), chunk_ext(sx, False)
+    by0, by1 = chunk_ext(sy, True), chunk_ext(sy, False)
 
-    # Per-tile chunk range [lo, hi): tile-sorted triangles give spatially
-    # coherent chunks, so most tiles overlap a handful of consecutive
-    # chunks — the kernel loops only its tile's range (with the in-loop
-    # bbox reject still skipping misses inside it).
-    t_iota = jnp.arange(nty * ntx, dtype=jnp.int32)
-    tj_t = (t_iota % ntx).astype(jnp.float32)
-    ti_t = (t_iota // ntx).astype(jnp.float32)
-    tx0 = tj_t * TW
-    ty0 = ti_t * TH
+    # Per-tile chunk range [lo, hi): the first and last chunk whose bbox
+    # overlaps the tile (the in-loop bbox test skips misses in between).
+    t_iota = jnp.arange(ntiles, dtype=jnp.int32)
+    tx0 = ((t_iota % ntx) * TILE).astype(jnp.float32)[:, None]
+    ty0 = ((t_iota // ntx) * TILE).astype(jnp.float32)[:, None]
     ov = (
-        (bx0[:, 0][None, :] <= (tx0 + TW)[:, None])
-        & (bx1[:, 0][None, :] >= tx0[:, None])
-        & (by0[:, 0][None, :] <= (ty0 + TH)[:, None])
-        & (by1[:, 0][None, :] >= ty0[:, None])
+        (bx0[None] <= tx0 + TILE) & (bx1[None] >= tx0)
+        & (by0[None] <= ty0 + TILE) & (by1[None] >= ty0)
     )                                                         # (tiles, nblk)
     b_iota = jnp.arange(nblk, dtype=jnp.int32)[None]
     lo_t = jnp.min(jnp.where(ov, b_iota, nblk), axis=1)
-    hi_t = jnp.max(jnp.where(ov, b_iota + 1, 0), axis=1)
-    rng = jnp.stack([lo_t, jnp.maximum(hi_t, lo_t)], axis=1)  # (tiles, 2)
+    hi_t = jnp.maximum(jnp.max(jnp.where(ov, b_iota + 1, 0), axis=1), lo_t)
+    tiles_p = _pow2(ntiles)
+    lo_t = jnp.pad(lo_t, (0, tiles_p - ntiles))
+    hi_t = jnp.pad(hi_t, (0, tiles_p - ntiles))
 
-    # One packed (T_pad, 10+A) attribute table: ax ay bx by cx cy za zb zc
-    # ok [+ G-buffer columns]. Separate (T_pad, 1) inputs each lane-pad to
-    # 128 in VMEM (16 MB apiece at fused-frame triangle counts — the 10×
-    # was a VMEM OOM).
-    cols = [sx[:, 0], sy[:, 0], sx[:, 1], sy[:, 1], sx[:, 2], sy[:, 2],
-            sz[:, 0], sz[:, 1], sz[:, 2], ok.astype(sx.dtype)]
-    attrs = jnp.stack(cols, axis=1)
-    if A:
-        attrs = jnp.concatenate([attrs, attr_sorted], axis=1)
-    attrs = jnp.pad(attrs, ((0, T_pad - T), (0, 0)))
-    bbox = jnp.concatenate([bx0, bx1, by0, by1], axis=1)      # (nblk, 4)
-    args = [rng, attrs, bbox]
-    kernel = functools.partial(
-        _raster_tile_kernel, TH=TH, TW=TW, CHUNK=CHUNK, T_pad=T_pad,
-        ntx=ntx, A=A,
+    attrs = jnp.stack(
+        [sx[:, 0], sy[:, 0], sx[:, 1], sy[:, 1], sx[:, 2], sy[:, 2],
+         sz[:, 0], sz[:, 1], sz[:, 2], ok.astype(sx.dtype)],
+        axis=0,
     )
-    out_specs = [
-        pl.BlockSpec(
-            (nty * ntx, PX), lambda t: (0, 0), memory_space=pltpu.VMEM
+    attrs = jnp.pad(attrs, ((0, 0), (0, T_pad - T)))          # (10, T_pad)
+    ids = jnp.pad(order, (0, T_pad - T), constant_values=IMAX)
+
+    depth, tid = pl.pallas_call(
+        functools.partial(_raster_tile_kernel, ntx=ntx),
+        grid=(ntiles,),
+        in_specs=[pl.no_block_spec] * 8,
+        out_specs=(
+            pl.BlockSpec((None, PX), lambda t: (t, 0)),
+            pl.BlockSpec((None, PX), lambda t: (t, 0)),
         ),
-        pl.BlockSpec(
-            (nty * ntx, PX), lambda t: (0, 0), memory_space=pltpu.VMEM
+        out_shape=(
+            jax.ShapeDtypeStruct((ntiles, PX), jnp.float32),
+            jax.ShapeDtypeStruct((ntiles, PX), jnp.int32),
         ),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((nty * ntx, PX), jnp.float32),
-        jax.ShapeDtypeStruct((nty * ntx, PX), jnp.int32),
-    ]
-    if A:
-        out_specs.append(
-            pl.BlockSpec(
-                (nty * ntx, A * PX), lambda t: (0, 0),
-                memory_space=pltpu.VMEM,
-            )
-        )
-        out_shape.append(
-            jax.ShapeDtypeStruct((nty * ntx, A * PX), jnp.float32)
-        )
-    out = pl.pallas_call(
-        kernel,
-        grid=(nty * ntx,),
-        compiler_params=pltpu.CompilerParams(
-            # Resident: packed attr table (T_pad × 128 lanes ≈ 16 MB at the
-            # fused-frame triangle count) + whole-image output tiles.
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        in_specs=[
-            pl.BlockSpec(
-                (nty * ntx, 2), lambda t: (0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(
-                (T_pad, 10 + A), lambda t: (0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (nblk, 4), lambda t: (0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=tuple(out_specs),
-        out_shape=tuple(out_shape),
+        backend="triton",
+        compiler_params=pltr.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(*args)
-    depth, tid = out[0], out[1]
-    # (tiles, PX) rows → (H, W) image (outside the kernel, reshapes are free).
-    depth = depth.reshape(nty, ntx, TH, TW).transpose(0, 2, 1, 3).reshape(Hp, Wp)
-    tid = tid.reshape(nty, ntx, TH, TW).transpose(0, 2, 1, 3).reshape(Hp, Wp)
-    # Map sorted-domain ids back to the caller's order.
-    tid = jnp.where((tid >= 0) & (tid < T), tid, T)
-    order_ext = jnp.concatenate([order, jnp.array([-1], jnp.int32)])
-    tid = order_ext[tid]
-    if A:
-        gbuf = out[2].reshape(nty, ntx, A, TH, TW)
-        gbuf = gbuf.transpose(0, 3, 1, 4, 2).reshape(Hp, Wp, A)
-        return depth[:H, :W], tid[:H, :W], gbuf[:H, :W]
-    return depth[:H, :W], tid[:H, :W]
+        name="raster_tiles",
+    )(lo_t, hi_t, attrs, ids, bx0, bx1, by0, by1)
+    # (tiles, PX) rows → (H, W) image.
+    img = lambda a: a.reshape(nty, ntx, TILE, TILE).transpose(
+        0, 2, 1, 3
+    ).reshape(nty * TILE, ntx * TILE)[:H, :W]
+    return img(depth), img(tid)

@@ -356,7 +356,9 @@ def render_pieces_frame(
                        rcfg.z_near, rcfg.z_far)
     lvp = light_view_proj(light_dir, (0.0, 1.0, 0.0), 14.0)
     img, _ = render_scene(
-        tris, tvalid, colors, proj @ view, lvp, light_dir,
+        tris, tvalid, colors,
+        jnp.matmul(proj, view, precision=jax.lax.Precision.HIGHEST),
+        lvp, light_dir,
         W=rcfg.width, H=rcfg.height, shadow_size=rcfg.shadow_size,
         cfg=rcfg, wireframe=wireframe,
     )
@@ -374,7 +376,7 @@ def interactive_frame(
 
     The reference's Tick is one loop (OnMouseDown → ExecuteFractureRoutine
     → simulate → Render, Surtr.cpp:123-131, 178-254); this is its
-    single-dispatch TPU analogue (a ray that misses degrades to
+    single-dispatch analogue (a ray that misses degrades to
     step+render with an empty target mask).
 
     Returns (pieces', phys', x0', img, metrics).

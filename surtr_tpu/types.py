@@ -192,7 +192,8 @@ def translate_poly(p: ConvexPoly, t) -> ConvexPoly:
 def transform_poly(p: ConvexPoly, R: jax.Array, t) -> ConvexPoly:
     """Rigid transform x -> R x + t (reference: Poly::Transform)."""
     t = jnp.asarray(t, p.face_verts.dtype)
-    fv = jnp.einsum("ij,...j->...i", R, p.face_verts) + t
-    n = jnp.einsum("ij,...j->...i", R, p.planes[..., :3])
+    hi = jax.lax.Precision.HIGHEST
+    fv = jnp.einsum("ij,...j->...i", R, p.face_verts, precision=hi) + t
+    n = jnp.einsum("ij,...j->...i", R, p.planes[..., :3], precision=hi)
     d = p.planes[..., 3:4] - jnp.sum(n * t, axis=-1, keepdims=True)
     return ConvexPoly(fv, p.n_verts, jnp.concatenate([n, d], axis=-1))

@@ -1,13 +1,15 @@
-"""Pallas clip-kernel parity vs the XLA scan fold (interpret mode on CPU).
+"""GPU plane-fold kernel parity vs the XLA scan fold (interpret mode on CPU).
 
 The kernel may rotate cap-face loops differently (pseudo-angle start point),
 so parity is asserted on geometry invariants: volume, centroid, emptiness,
-and face-plane containment — not raw slot layout.
+and face-plane containment — not raw slot layout. Cases cover the kernel's
+padding: F not a power of two, K not a power of two.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from surtr_tpu.ops.clip import clip_poly_planes
 from surtr_tpu.ops.clip_pallas import clip_planes_batch_pallas
@@ -29,12 +31,13 @@ def _random_case(key, N=10, K=16, F=32, S=16):
     return polys, planes, mask
 
 
-def test_pallas_matches_scan_fold():
-    polys, planes, mask = _random_case(jax.random.PRNGKey(7))
+@pytest.mark.parametrize("F,K", [(32, 16), (26, 13)])
+def test_pallas_matches_scan_fold(F, K):
+    polys, planes, mask = _random_case(jax.random.PRNGKey(7), K=K, F=F)
     ref = jax.vmap(lambda p, pls, pm: clip_poly_planes(p, pls, pm))(
         polys, planes, mask
     )
-    out = clip_planes_batch_pallas(polys, planes, mask, interpret=True, block=8)
+    out = clip_planes_batch_pallas(polys, planes, mask, interpret=True)
     vr, cr = moments(ref)
     vo, co = moments(out)
     np.testing.assert_allclose(np.asarray(vr), np.asarray(vo), atol=2e-6)
@@ -47,9 +50,10 @@ def test_pallas_matches_scan_fold():
     )
 
 
-def test_pallas_vertices_inside_all_planes():
-    polys, planes, mask = _random_case(jax.random.PRNGKey(3), N=6, K=12)
-    out = clip_planes_batch_pallas(polys, planes, mask, interpret=True, block=8)
+@pytest.mark.parametrize("F", [32, 20])
+def test_pallas_vertices_inside_all_planes(F):
+    polys, planes, mask = _random_case(jax.random.PRNGKey(3), N=6, K=12, F=F)
+    out = clip_planes_batch_pallas(polys, planes, mask, interpret=True)
     s = (
         jnp.einsum("nkd,nfsd->nfsk", planes[..., :3], out.face_verts)
         + planes[:, None, None, :, 3]
@@ -67,7 +71,7 @@ def test_pallas_empty_input_stays_empty():
     )
     pn = jnp.broadcast_to(jnp.asarray([1.0, 0, 0, 0.1]), (N, K, 4))
     out = clip_planes_batch_pallas(
-        polys, pn, jnp.ones((N, K), bool), interpret=True, block=4
+        polys, pn, jnp.ones((N, K), bool), interpret=True
     )
     assert bool(jnp.all(out.is_empty()))
 
@@ -75,7 +79,7 @@ def test_pallas_empty_input_stays_empty():
 def test_pallas_masked_planes_are_noops():
     polys, planes, _ = _random_case(jax.random.PRNGKey(9), N=4, K=8)
     out = clip_planes_batch_pallas(
-        polys, planes, jnp.zeros((4, 8), bool), interpret=True, block=4
+        polys, planes, jnp.zeros((4, 8), bool), interpret=True
     )
     v, _ = moments(out)
     np.testing.assert_allclose(np.asarray(v), 1.0, atol=1e-5)
@@ -122,7 +126,7 @@ def test_pallas_degenerate_inplane_cuts():
     ref = jax.vmap(lambda p, pls, pm: clip_poly_planes(p, pls, pm))(
         polys, planes, mask
     )
-    out = clip_planes_batch_pallas(polys, planes, mask, interpret=True, block=8)
+    out = clip_planes_batch_pallas(polys, planes, mask, interpret=True)
     vr, _ = moments(ref)
     vo, _ = moments(out)
     np.testing.assert_allclose(np.asarray(vr), np.asarray(vo), atol=3e-6)

@@ -1,4 +1,4 @@
-"""Unit tests for the TPU-shaped linalg primitives (compaction, packing,
+"""Unit tests for the scatter-free linalg primitives (compaction, packing,
 small contractions) — these carry the scatter-free kernel designs."""
 
 import jax

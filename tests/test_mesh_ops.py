@@ -110,8 +110,8 @@ def test_tri_soup_components_two_islands():
 
 
 def test_tri_soup_components_methods_agree():
-    """The MXU matmul-closure path (TPU default) and the relax+jump path
-    (CPU default) must label identically, including with a masked tail and
+    """The matmul-closure path and the relax+jump path must label
+    identically, including with a masked tail and
     a long chain (diameter stress for the jump doubling)."""
     rng = np.random.RandomState(3)
     strips = []

@@ -1,4 +1,4 @@
-"""Parity: TPU kernels vs the f64 adjacency-polyhedron oracle
+"""Parity: the device geometry kernels vs the f64 adjacency-polyhedron oracle
 (BASELINE config 0 — 'geometric parity against the C++ path')."""
 
 import jax
@@ -63,7 +63,7 @@ def test_fracture_fragment_volumes_match_oracle():
     # Oracle fragments: cube ∩ cell — same planes, f64 adjacency clip.
     v_o = []
     for cell in oc:
-        # Recover the cell's planes from its faces is the TPU kernel's job;
+        # Recover the cell's planes from its faces is the fold kernel's job;
         # the oracle clips the cube directly by the same bisectors instead.
         pass
     seeds64 = seeds.astype(np.float64)

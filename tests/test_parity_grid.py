@@ -66,11 +66,37 @@ def test_parity_grid_outside_bbox_is_outside():
     assert not bool(parity_grid_inside(grid, far).any())
 
 
-def test_labels_pallas_matches_xla():
-    """Interpret-mode Pallas soup labeling == the XLA closure on a batch of
-    candidate-like soups (two islands, degenerate, empty)."""
+def _union_find_labels(corners, valid, tol=1e-5):
+    """Min-index component labels of triangles sharing a quantized corner."""
+    T = len(corners)
+    parent = list(range(T))
+
+    def find(i):
+        while parent[i] != i:
+            parent[i] = parent[parent[i]]
+            i = parent[i]
+        return i
+
+    owner = {}
+    q = np.round(corners / tol).astype(np.int64)
+    for t in range(T):
+        if not valid[t]:
+            continue
+        for c in range(3):
+            key = tuple(q[t, c])
+            if key in owner:
+                a, b = find(t), find(owner[key])
+                parent[max(a, b)] = min(a, b)
+            else:
+                owner[key] = t
+    return np.array([find(t) if valid[t] else T for t in range(T)])
+
+
+@pytest.mark.parametrize("method", ["jump", "matmul", None])
+def test_labels_match_union_find(method):
+    """Both soup-labeling closures == a NumPy union-find on a batch of
+    candidate-like soups (strip, two strips, empty, half-valid)."""
     from surtr_tpu.ops.labels import tri_soup_components
-    from surtr_tpu.ops.labels_pallas import tri_soup_components_batch_pallas
 
     rng = np.random.RandomState(3)
     N, T = 6, 16
@@ -85,61 +111,117 @@ def test_labels_pallas_matches_xla():
     valid = np.ones((N, T), bool)
     valid[2, :] = False                 # empty candidate
     valid[3, T // 2 :] = False          # half-valid
-    corners = jnp.asarray(corners)
-    valid = jnp.asarray(valid)
-
-    got = tri_soup_components_batch_pallas(corners, valid, interpret=True)
-    want = jnp.stack(
-        [tri_soup_components(corners[i], valid[i]) for i in range(N)]
+    got = jax.vmap(
+        lambda c, v: tri_soup_components(c, v, method=method)
+    )(jnp.asarray(corners), jnp.asarray(valid))
+    want = np.stack(
+        [_union_find_labels(corners[i], valid[i]) for i in range(N)]
     )
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(got), want)
 
 
-def test_refit_pallas_matches_xla():
-    """Interpret-mode Pallas refit == vmapped tetra-hull + k-DOP planes."""
+def test_refit_planes_are_supporting_slabs():
+    """Batched refit (tetra hull + k-DOP at gap 0): every live slab plane
+    has a unit normal, supports its point pool (no point outside, some
+    point on it), and comes paired with its opposite; pools with fewer
+    than 4 points get no planes."""
     from surtr_tpu.fracture.pipeline import refit_planes
-    from surtr_tpu.ops.refit_pallas import refit_planes_batch_pallas
 
     rng = np.random.RandomState(5)
     N, Pv = 5, 40
-    pool = jnp.asarray(rng.randn(N, Pv, 3), jnp.float32)
-    mask = jnp.asarray(rng.rand(N, Pv) > 0.3)
-    # Degenerate candidates: too few points / all masked.
-    mask = mask.at[3, 4:].set(False)
-    mask = mask.at[4, :].set(False)
+    pool = rng.randn(N, Pv, 3).astype(np.float32)
+    mask = rng.rand(N, Pv) > 0.3
+    mask[3, 4:] = False             # degenerate: too few points
+    mask[3, :3] = True
+    mask[4, :] = False              # all masked
+    planes, pm = jax.vmap(lambda v, m: refit_planes(v, m, 4))(
+        jnp.asarray(pool), jnp.asarray(mask)
+    )
+    planes, pm = np.asarray(planes, np.float64), np.asarray(pm)
+    assert not pm[3].any() and not pm[4].any()
+    for i in range(3):
+        pts = pool[i][mask[i]].astype(np.float64)
+        live = planes[i][pm[i]]
+        assert len(live) >= 8
+        np.testing.assert_allclose(
+            np.linalg.norm(live[:, :3], axis=1), 1.0, atol=1e-5
+        )
+        s = pts @ live[:, :3].T + live[:, 3]
+        assert s.max() < 1e-4
+        np.testing.assert_allclose(s.max(axis=0), 0.0, atol=1e-4)
+        for n in live[:, :3]:
+            assert (np.abs(live[:, :3] + n).sum(1) < 1e-5).any()
 
-    got_p, got_m = refit_planes_batch_pallas(pool, mask, interpret=True)
-    want_p, want_m = jax.vmap(lambda v, m: refit_planes(v, m, 4))(pool, mask)
-    np.testing.assert_array_equal(np.asarray(got_m), np.asarray(want_m))
-    gp = np.asarray(got_p)[np.asarray(got_m)]
-    wp = np.asarray(want_p)[np.asarray(want_m)]
-    np.testing.assert_allclose(gp, wp, rtol=1e-5, atol=1e-5)
 
+def test_ich_matches_scipy_hull():
+    """The greedy ICH is the convex hull of the points it inserted: faces
+    are outward, every inserted point is inside every face, and its volume
+    equals scipy's hull of those points (the full hull for the cube)."""
+    from scipy.spatial import ConvexHull
 
-def test_ich_pallas_matches_xla():
-    """Interpret-mode Pallas ICH == the XLA greedy hull (normal sets and
-    face counts; slot order matches the argsort-based assignment)."""
     from surtr_tpu.io.models import get_model
     from surtr_tpu.ops.hull import ich
-    from surtr_tpu.ops.hull_pallas import ich_pallas
 
     rng = np.random.RandomState(7)
     clouds = [
-        jnp.asarray(get_model("cube")[0]),
-        jnp.asarray(rng.randn(40, 3), jnp.float32),
-        jnp.asarray(rng.rand(100, 3) * jnp.asarray([2.0, 1.0, 0.5]),
-                    jnp.float32),
+        np.asarray(get_model("cube")[0], np.float32),
+        rng.randn(40, 3).astype(np.float32),
+        (rng.rand(100, 3) * np.array([2.0, 1.0, 0.5])).astype(np.float32),
     ]
     for pts in clouds:
-        m = jnp.ones(pts.shape[0], bool)
-        want = ich(pts, m, limit=20)
-        got = ich_pallas(pts, m, limit=20, interpret=True)
-        np.testing.assert_array_equal(
-            np.asarray(got["face_valid"]), np.asarray(want["face_valid"])
-        )
-        np.testing.assert_allclose(
-            np.asarray(got["inner"]), np.asarray(want["inner"]), rtol=1e-6
-        )
-        gv = np.asarray(got["normals"])[np.asarray(got["face_valid"])]
-        wv = np.asarray(want["normals"])[np.asarray(want["face_valid"])]
-        np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-6)
+        h = ich(jnp.asarray(pts), jnp.ones(len(pts), bool), limit=20)
+        fv = np.asarray(h["face_valid"])
+        faces = np.asarray(h["faces"])[fv]
+        nrm = np.asarray(h["normals"], np.float64)[fv]
+        inner = np.asarray(h["inner"], np.float64)
+        P = pts.astype(np.float64)
+        used = np.unique(faces)
+        tri = P[faces]                                   # (F, 3, 3)
+        assert ((inner - tri[:, 0]) * nrm).sum(1).max() < 0
+        s = (P[used][None] - tri[:, None, 0]) * nrm[:, None]
+        assert s.sum(-1).max() < 1e-4
+        vol = np.abs(
+            np.einsum("fi,fi->f", tri[:, 0] - inner,
+                      np.cross(tri[:, 1] - inner, tri[:, 2] - inner))
+        ).sum() / 6.0
+        np.testing.assert_allclose(vol, ConvexHull(P[used]).volume, rtol=1e-4)
+        if len(pts) <= 20:
+            np.testing.assert_allclose(vol, ConvexHull(P).volume, rtol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "N,T,grid,method",
+    [
+        (512, 64, 4, None),
+        (512, 64, 4, "jump"),
+        (512, 64, 4, "matmul"),
+        (64, 512, 12, None),
+        (64, 512, 12, "jump"),
+    ],
+)
+def test_default_labels_converge_on_dense_soups(N, T, grid, method):
+    """Labels equal a NumPy union-find on dense random soups, at the
+    interactive config's T=64 and the default config's T=512. Rows 0 and 1
+    are one and two strips in shuffled triangle order (long paths). At
+    T=512 relax+jump cut off at a dozen rounds left 34 of these 64 rows
+    split; run to its fixed point it is exact."""
+    from surtr_tpu.ops.labels import tri_soup_components
+
+    rng = np.random.default_rng(0)
+    corners = (np.round(rng.uniform(0, grid, (N, T, 3, 3))) * 0.25).astype(
+        np.float32
+    )
+    for row, breaks in ((0, ()), (1, (T // 2 - 1,))):
+        perm = rng.permutation(T)
+        for t in range(T - 1):
+            if t not in breaks:
+                corners[row, perm[t + 1], 0] = corners[row, perm[t], 1]
+    valid = rng.uniform(size=(N, T)) > 0.2
+    valid[:2] = True
+    want = np.stack(
+        [_union_find_labels(corners[i], valid[i]) for i in range(N)]
+    )
+    got = jax.vmap(lambda c, v: tri_soup_components(c, v, method=method))(
+        jnp.asarray(corners), jnp.asarray(valid)
+    )
+    np.testing.assert_array_equal(np.asarray(got), want)

@@ -177,38 +177,33 @@ def test_raycast_and_sphere_overlap():
 import pytest
 
 
-def test_pallas_solver_matches_xla_solver():
-    """The fused per-iteration Pallas solver (single-piece bodies) must
-    agree with the XLA reference path. (The banded-Morton variant was
-    deleted in round 5 — measured-out; see tools/exp_gs_sweep.py.)"""
+def _single_vs_general(offsets, n, **over):
+    """Trajectories of the gather-free single-piece solver path and the
+    general segment-sum path on the same scene."""
     import dataclasses
 
-    offsets = [[0, -1.45, 0], [0, -0.4, 0], [0.3, 0.65, 0], [5, -1.4, 0]]
-    groups = list(range(4))
-    base = dataclasses.replace(
-        PCFG,
-        single_piece_bodies=True,
-        broadphase="exact",
+    out = []
+    for single in (True, False):
+        cfg = dataclasses.replace(PCFG, single_piece_bodies=single, **over)
+        s = build_scene(make_pieces(offsets, list(range(len(offsets)))), cfg)
+        step = jax.jit(lambda s, c=cfg: physics_step(s, c))
+        for _ in range(n):
+            s = step(s)
+        out.append(s.bodies)
+    return out
+
+
+def test_single_piece_solver_matches_general_solver():
+    """With one piece per body the per-body segment sums are the identity,
+    so the gather-free solver path must give the general path's result."""
+    a, b = _single_vs_general(
+        [[0, -1.45, 0], [0, -0.4, 0], [0.3, 0.65, 0], [5, -1.4, 0]], 30,
+        broadphase="auto",
     )
-    s0 = build_scene(make_pieces(offsets, groups), base)
-    s_x = s0
-    s_p = s0
-    xla_cfg = dataclasses.replace(base, broadphase="exact")
-    step_x = jax.jit(lambda s: physics_step(s, xla_cfg))
-    forced = dataclasses.replace(base, force_pallas_solver=True)
-    step_p = jax.jit(lambda s: physics_step(s, forced))
-    for _ in range(30):
-        s_x = step_x(s_x)
-        s_p = step_p(s_p)
-    np.testing.assert_allclose(
-        np.asarray(s_p.bodies.x), np.asarray(s_x.bodies.x), atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_p.bodies.v), np.asarray(s_x.bodies.v), atol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_p.bodies.w), np.asarray(s_x.bodies.w), atol=1e-4
-    )
+    for f in ("x", "v", "w"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(a, f)), np.asarray(getattr(b, f)), atol=1e-5
+        )
 
 
 def test_body_sleeping_and_wake():
@@ -278,55 +273,47 @@ def test_sustained_push_wakes_sleeper():
     )
 
 
-def test_pallas_narrowphase_matches_xla():
-    """The fused Pallas SAT+manifold kernel must reproduce the XLA
-    narrowphase. Compared as SINGLE steps from independent random states
-    with strong rotations: a settling trajectory aligns boxes face-to-face
-    where several SAT axes tie at the same penetration, and the
-    first-of-ties pick then depends on the backend's fp summation order
-    (measured: a 30-step settle hit such ties on 4 of 5 jitter seeds,
-    env-dependently). Strongly rotated overlapping boxes have unique SAT
-    minima, so parity there is a real correctness check."""
+def test_narrowphase_step_matches_f64():
+    """The SAT + manifold narrowphase in float32 against the same step in
+    float64. Compared as SINGLE steps from independent random states with
+    strong rotations: a settling trajectory aligns boxes face-to-face where
+    several SAT axes tie at the same penetration, and the first-of-ties
+    pick then depends on rounding. Strongly rotated overlapping boxes have
+    unique SAT minima, so agreement there is a real correctness check."""
     import dataclasses as dc
 
     from surtr_tpu.physics.rigid import quat_normalize
 
-    base = dc.replace(PCFG, pallas_narrowphase=False)
-    forced = dc.replace(
-        PCFG, pallas_narrowphase=True, force_pallas_narrowphase=True
-    )
-    step_x = jax.jit(lambda s: physics_step(s, base))
-    step_p = jax.jit(lambda s: physics_step(s, forced))
-    for seed in range(8):
-        key = jax.random.PRNGKey(seed)
-        k1, k2, k3 = jax.random.split(key, 3)
-        # Overlapping cluster + one grounded + one far-away box.
-        offs = jnp.concatenate(
-            [
-                jax.random.uniform(k1, (3, 3), minval=-0.6, maxval=0.6)
-                + jnp.asarray([0.0, -0.8, 0.0]),
-                jnp.asarray([[5.0, -1.45, 0.0]]),
-            ]
-        )
-        s = build_scene(make_pieces(offs.tolist(), list(range(4))), base)
-        q = quat_normalize(
-            s.bodies.q + 0.35 * jax.random.normal(k2, (4, 4))
-        )
-        v = 0.5 * jax.random.normal(k3, (4, 3))
-        s = dc.replace(
-            s, bodies=dc.replace(s.bodies, q=q, v=v)
-        )
-        s_x = step_x(s)
-        s_p = step_p(s)
-        np.testing.assert_allclose(
-            np.asarray(s_p.bodies.v), np.asarray(s_x.bodies.v), atol=1e-5,
-            err_msg=f"seed {seed}",
-        )
-        np.testing.assert_allclose(
-            np.asarray(s_p.bodies.w), np.asarray(s_x.bodies.w), atol=1e-5,
-            err_msg=f"seed {seed}",
-        )
+    def one_step(seed, dtype):
+        with jax.enable_x64(dtype == jnp.float64):
+            k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
+            f32 = jnp.float32
+            # Overlapping cluster + one grounded + one far-away box.
+            offs = jnp.concatenate(
+                [
+                    jax.random.uniform(k1, (3, 3), f32, -0.6, 0.6)
+                    + jnp.asarray([0.0, -0.8, 0.0]),
+                    jnp.asarray([[5.0, -1.45, 0.0]]),
+                ]
+            )
+            s = build_scene(make_pieces(offs.tolist(), list(range(4))), PCFG)
+            q = quat_normalize(
+                s.bodies.q + 0.35 * jax.random.normal(k2, (4, 4), f32)
+            )
+            v = 0.5 * jax.random.normal(k3, (4, 3), f32)
+            s = dc.replace(s, bodies=dc.replace(s.bodies, q=q, v=v))
+            s = jax.tree_util.tree_map(
+                lambda a: a.astype(dtype) if a.dtype == f32 else a, s
+            )
+            s1 = jax.jit(lambda s: physics_step(s, PCFG))(s)
+            return (np.asarray(s1.bodies.v, np.float64),
+                    np.asarray(s1.bodies.w, np.float64))
 
+    for seed in range(8):
+        v32, w32 = one_step(seed, jnp.float32)
+        v64, w64 = one_step(seed, jnp.float64)
+        np.testing.assert_allclose(v32, v64, atol=2e-5, err_msg=f"seed {seed}")
+        np.testing.assert_allclose(w32, w64, atol=2e-5, err_msg=f"seed {seed}")
 
 
 @pytest.mark.slow
@@ -358,7 +345,7 @@ def test_broadphase_sorted_vs_exact_on_dense_pile():
     valid = jnp.ones((n,), bool)
     K = 8
     pe, oke = _broadphase(centers, lo, hi, owner, valid, K, 512)
-    ps, oks, _, _, _ = _broadphase_sorted(centers, lo, hi, owner, valid, K, 32)
+    ps, oks = _broadphase_sorted(centers, lo, hi, owner, valid, K, 32)
 
     def pairs(pi, ok):
         pi, ok = np.asarray(pi), np.asarray(ok)
@@ -374,7 +361,7 @@ def test_broadphase_sorted_vs_exact_on_dense_pile():
     # height profile (missed candidates redistribute contacts, they must
     # not let the pile sink or interpenetrate).
     cfg_e = dataclasses.replace(
-        PCFG, broadphase="exact", single_piece_bodies=True
+        PCFG, broadphase="auto", single_piece_bodies=True
     )
     cfg_s = dataclasses.replace(
         PCFG, broadphase="sorted", single_piece_bodies=True
@@ -443,46 +430,15 @@ def test_broadphase_grid_full_recall_on_dense_pile():
     assert miss <= 0.02, f"grid broadphase missed {miss:.2%} of exact pairs"
 
 
-def test_fused_fast_path_matches_xla_reference():
-    """The PRODUCTION fast path (transform-pack kernel → raw narrowphase →
-    fused prep/solver) vs the pure-XLA reference path, 30 steps on a small
-    settling pile. On TPU both sides of the older parity tests take the
-    fast path; this one forces the kernels in interpret mode on CPU so a
-    layout/stride regression in the kernel chain cannot pass the suite."""
-    import dataclasses
-
+def test_settling_pile_single_piece_matches_general():
+    """The production single-piece configuration (the physics bench's) vs
+    the general path, 30 steps on a small settling pile."""
     offsets = [[0, -1.45 + 1.02 * i, 0] for i in range(4)] + [
         [1.2, -1.45, 0.0], [1.2, -0.4, 0.0]
     ]
-    base = PhysicsConfig(
-        broadphase_block=64, single_piece_bodies=True, max_hull_verts=16
-    )
-    fast = dataclasses.replace(
-        base,
-        pallas_narrowphase=True,
-        force_pallas_narrowphase=True,
-        force_pallas_solver=True,
-        fused_prep=True,
-    )
-    ref = dataclasses.replace(base, pallas_narrowphase=False)
-
-    def run_cfg(cfg, n=30):
-        s = build_scene(
-            make_pieces(offsets, list(range(len(offsets)))), cfg
-        )
-        step = jax.jit(lambda s, c=cfg: physics_step(s, c))
-        for _ in range(n):
-            s = step(s)
-        return s
-
-    a = run_cfg(fast)
-    b = run_cfg(ref)
-    np.testing.assert_allclose(
-        np.asarray(a.bodies.x), np.asarray(b.bodies.x), atol=2e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(a.bodies.v), np.asarray(b.bodies.v), atol=2e-3
-    )
+    a, b = _single_vs_general(offsets, 30)
+    np.testing.assert_allclose(np.asarray(a.x), np.asarray(b.x), atol=2e-4)
+    np.testing.assert_allclose(np.asarray(a.v), np.asarray(b.v), atol=2e-3)
 
 
 def test_island_wake_propagates_up_a_stack():
@@ -546,40 +502,16 @@ def test_all_asleep_step_is_identity():
         ), f
 
 
-@pytest.mark.slow
-def test_warm_start_stack_holds_at_four_iters():
-    """Warm-started accumulated PGS (PhysX persistent-manifold analogue):
-    a 5-high stack at solver_iters=4 / substeps=1 — HALF the cold budget —
-    must hold its HEIGHTS tightly (measured y-err 0.015 vs 0.132 for the
-    cold form at 4/1: the carried normal impulses resolve penetration the
-    4 iterations alone cannot). Lateral drift is the accumulated form's
-    measured weakness (~7-13 cm over 5 s from the friction cone's
-    path-dependence under Jacobi — see ROADMAP round-4 notes; the cold
-    8/2 default stays at 0 drift), so the band here is a tripwire at
-    0.15, not the 1 cm default-config bar."""
-    import dataclasses
-
-    cfg = PhysicsConfig(
-        broadphase_block=64,
-        single_piece_bodies=True,
-        max_hull_verts=16,
-        pallas_narrowphase=True,
-        force_pallas_narrowphase=True,
-        force_pallas_solver=True,
-        fused_prep=True,
-        warm_start=True,
-        solver_iters=4,
-        solver_substeps=1,
+def test_five_stack_single_piece_matches_general():
+    """A 5-high stack, 120 steps: the single-piece and general solver paths
+    give the same trajectory, and the stack holds."""
+    a, b = _single_vs_general(
+        [[0, -1.45 + 1.02 * i, 0] for i in range(5)], 120
     )
-    offsets = [[0, -1.45 + 1.02 * i, 0] for i in range(5)]
-    s = build_scene(make_pieces(offsets, list(range(5))), cfg)
-    step = jax.jit(lambda s: physics_step(s, cfg))
-    for _ in range(600):
-        s = step(s)
-    ys = np.asarray(s.bodies.x[:5, 1])
-    xs = np.asarray(s.bodies.x[:5, 0])
-    zs = np.asarray(s.bodies.x[:5, 2])
+    for f in ("x", "v", "w"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(a, f)), np.asarray(getattr(b, f)), atol=1e-4
+        )
+    ys = np.asarray(a.x[:5, 1])
     for i in range(5):
-        assert abs(ys[i] - (-1.5 + 1.0 * i)) < 0.05, ys
-    assert np.all(np.abs(xs) < 0.15), xs
-    assert np.all(np.abs(zs) < 0.15), zs
+        assert abs(ys[i] - (-1.5 + 1.0 * i)) < 0.1, ys

@@ -89,9 +89,13 @@ def test_render_scene_shadow():
     assert vals.min() < 0.25         # shadowed region under the square
 
 
-def test_pallas_raster_matches_jnp_path():
-    """Interpret-mode parity of the banned/banded Pallas tile rasterizer
-    against the jnp reference path (same depth and triangle ids)."""
+@pytest.mark.parametrize(
+    "T,W,H",
+    [(160, 96, 96), (157, 100, 72)],  # second: T and the image off-tile
+)
+def test_pallas_raster_matches_jnp_path(T, W, H):
+    """Interpret-mode parity of the binned tile rasterizer kernel against
+    the jnp reference path (same depth and triangle ids)."""
     import numpy as np
 
     from surtr_tpu.render.camera import look_at, perspective
@@ -99,7 +103,6 @@ def test_pallas_raster_matches_jnp_path():
     from surtr_tpu.render.raster_pallas import rasterize_ids_pallas
 
     rng = np.random.default_rng(3)
-    T = 160
     centers = rng.uniform(-3, 3, (T, 1, 3)).astype(np.float32)
     tris = jnp.asarray(centers + rng.normal(0, 0.4, (T, 3, 3)).astype(np.float32))
     # one screen-large triangle (ground-quad analogue) exercises the head path
@@ -107,13 +110,12 @@ def test_pallas_raster_matches_jnp_path():
         jnp.asarray([[-30, -2, -30], [-30, -2, 30], [30, -2, 30]], jnp.float32)
     )
     valid = jnp.ones((T,), bool)
-    cam = perspective(45, 1.0, 0.1, 100) @ look_at((7, 5, 7), (0, 0, 0))
-    W = H = 96
+    cam = perspective(45, W / H, 0.1, 100) @ look_at((7, 5, 7), (0, 0, 0))
 
     clip = _project(tris, cam)
     clip2, ok2 = near_clip(clip, valid)
     sx, sy, sz, _ = _screen(clip2, W, H)
-    d_ref, t_ref = raster_screen(sx, sy, sz, ok2, W, H, use_pallas=False)
+    d_ref, t_ref = raster_screen(sx, sy, sz, ok2, W, H)
     d_pal, t_pal = rasterize_ids_pallas(sx, sy, sz, ok2, W, H, interpret=True)
     np.testing.assert_allclose(
         np.asarray(d_pal), np.asarray(d_ref), atol=1e-6
